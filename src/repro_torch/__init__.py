@@ -1,0 +1,24 @@
+"""NeurLZ in PyTorch with hand-written CUDA kernels for the H100.
+
+A port of the JAX package ``repro`` (which stays the reference) that
+imports neither JAX nor anything of ``repro``.  The main path is the
+paper's workload: ``NeurLZ(...).compress`` with the serial engine, the
+``szlike`` interpolation predictor and strict regulation, then
+``Archive.decode``.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; on CUDA tensors the ``conv2d3x3`` and ``fused_enhance``
+kernels run (``repro_torch.kernels``), on CPU tensors their plain PyTorch
+versions.
+
+Subpackages: ``core`` (enhancer, trainer, regulation, engine, archive),
+``compressors`` (szlike and the byte layer), ``kernels`` (CUDA kernels and
+their build), ``optim``, ``data`` (synthetic fields).
+"""
+from .api import (EngineConfig, ModelConfig, NeurLZ, RegulationConfig,
+                  join_config, split_config)
+from .core.archive_api import Archive
+from .core.neurlz import NeurLZConfig
+
+__version__ = "0.1.0"
+
+__all__ = ["NeurLZ", "Archive", "ModelConfig", "EngineConfig",
+           "RegulationConfig", "NeurLZConfig", "join_config", "split_config"]

@@ -1,0 +1,32 @@
+"""The port stands alone: importing ``repro_torch`` and running a small
+compress/decode on the CPU loads neither JAX nor any module of ``repro``."""
+import os
+import subprocess
+import sys
+
+_SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_SCRIPT = """
+import sys
+import numpy as np
+import repro_torch
+from repro_torch.data import fields
+
+f = fields.make_fields("hurricane", (5, 12, 10), seed=0)
+arc = repro_torch.NeurLZ(epochs=1, device="cpu").compress(f, rel_eb=1e-2)
+dec = arc.decode_all()
+for name, x in f.items():
+    assert np.abs(dec[name].astype(np.float64) - x).max() <= arc["fields"][name]["abs_eb"]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
