@@ -21,7 +21,8 @@ from typing import Mapping
 from . import device as device_lib
 from .core import neurlz
 from .core.archive_api import Archive
-from .core.neurlz import NeurLZConfig, unported
+from .core.neurlz import NeurLZConfig
+from .roadmap import unported
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,10 +24,12 @@ import math
 import numpy as np
 import torch
 
+from ..roadmap import unported
 from . import codec, entropy
 from .quantize import CODE_CAP, abs_bound_from_rel
 
 _F64 = torch.float64
+_LORENZO_ITEM = "registry + conv_stage + szlike-lorenzo"
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -222,9 +224,7 @@ def compress(x: np.ndarray, rel_eb: float | None = None, *,
     the enhancer trains against it without a decode round trip.
     """
     if config.predictor != "interp":
-        raise NotImplementedError(
-            f"predictor {config.predictor!r} is not ported yet (ROADMAP.md, "
-            "'Modules still to port': registry + conv_stage + szlike-lorenzo)")
+        raise unported(f"predictor {config.predictor!r}", _LORENZO_ITEM)
     x = np.asarray(x)
     if x.ndim not in (2, 3):
         raise ValueError(f"expected 2-D or 3-D field, got shape {x.shape}")
@@ -262,9 +262,7 @@ def decompress(arc: dict, device="cpu") -> np.ndarray:
     if arc["kind"] != "szlike":
         raise ValueError("not an szlike archive")
     if arc["predictor"] != "interp":
-        raise NotImplementedError(
-            f"predictor {arc['predictor']!r} is not ported yet (ROADMAP.md, "
-            "'Modules still to port': registry + conv_stage + szlike-lorenzo)")
+        raise unported(f"predictor {arc['predictor']!r}", _LORENZO_ITEM)
     level = arc["level"]
     _, phases = _interp_schedule(tuple(arc["shape"]), level)
     rec = _interp_decode(tuple(arc["pad_shape"]), arc["eb_int"], level, phases,

@@ -17,6 +17,7 @@ import numpy as np
 
 from .. import compressors
 from .. import device as device_lib
+from ..roadmap import unported
 from . import archive as arc_io
 from . import neurlz
 
@@ -40,8 +41,8 @@ class Archive(Mapping):
             source.seek(0)
             data, path = source.read(), None
         if data[:8] in _STREAM_MAGICS:
-            raise neurlz.unported("the streaming container (NLZSTRM1/2)",
-                                  "the streaming containers NLZSTRM1/2")
+            raise unported("the streaming container (NLZSTRM1/2)",
+                           "the streaming containers NLZSTRM1/2")
         return cls(arc_io.loads(data), path=path, device=device)
 
     @classmethod

@@ -25,14 +25,9 @@ import torch
 
 from .. import compressors
 from ..compressors import outliers as outlier_codec
+from ..roadmap import unported
 from . import archive as arc_io
 from . import metrics, online_trainer, regulation, skipping_dnn
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, 'Modules "
-        f"still to port': {item})")
 
 
 @dataclasses.dataclass(frozen=True)

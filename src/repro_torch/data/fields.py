@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..roadmap import unported
+
 
 def _grf(rng: np.random.Generator, shape, slope: float,
          aniso: tuple = None) -> np.ndarray:
@@ -35,9 +37,7 @@ def make_fields(dataset: str = "hurricane", shape=(64, 64, 64), seed: int = 0,
     """The correlated fields of one synthetic snapshot; ``coupling`` is the
     shared-latent fraction (cross-field correlation)."""
     if dataset != "hurricane":
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported to repro_torch yet (ROADMAP.md, "
-            "'Modules still to port': the rest)")
+        raise unported(f"dataset {dataset!r}", "the rest")
     rng = np.random.default_rng(seed)
     c = float(np.clip(coupling, 0.0, 1.0))
     w_shared, w_own = np.sqrt(c), np.sqrt(1.0 - c)
