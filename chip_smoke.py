@@ -23,6 +23,11 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 5. the launch count of every kernel over the main path (each must be > 0);
 6. a torch.profiler trace of ten training steps (device-busy share).
 
+Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
+summed from a torch.profiler trace, so host time between launches is not in
+them; ``wall_ms`` is the kernel wrapper's time per call back to back between
+CUDA events, which holds the host's cost of a call where that is longer.
+
 It prints a ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (default
 ``build/chip_smoke/chip_smoke.json``), the archive to ``build/chip_smoke/``.
@@ -63,8 +68,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time per call of ``iters`` back-to-back calls between two CUDA
+    events: the device's time, or the host's where the host cannot enqueue
+    the next call before the device has finished the last."""
     import torch
     for _ in range(warmup):
         fn()
@@ -76,6 +83,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None
+              ) -> float:
+    """Mean device time of one call of ``fn``: the summed durations of the
+    device activities (kernels, copies, fills) of ``iters`` calls in a
+    torch.profiler trace, over ``iters``.  Host time between launches is not
+    in it.  With ``kernel``, the trace must show exactly ``iters`` kernels
+    whose name holds that string (one launch per call, each seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler saw no device activity")
+    if kernel is not None:
+        seen = sum(kernel in e.name for e in events)
+        if seen != iters:
+            raise AssertionError(f"the profiler saw {seen} {kernel} kernels "
+                                 f"in {iters} calls")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -92,9 +127,9 @@ def conv_phase(dev, report: dict) -> dict:
     cases = [(f"{name}_N{n}", n, h, h, cin, cout, s, relu, n == 10)
              for n in (10, 64) for name, h, cin, cout, s, relu in LAYERS_512]
     cases += [(*c, False) for c in EXTRA_CONV]
-    rows, summary = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                         "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                         "max_abs_err": 0.0}
+    rows, summary = [], {"ms": 0.0, "wall_ms": 0.0, "plain_ms": 0.0,
+                         "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+                         "ops_ms": 0.0, "max_abs_err": 0.0}
     for name, n, h, w, cin, cout, s, relu, in_summary in cases:
         x = torch.randn((n, h, w, cin), generator=gen).to(dev)
         wt = (torch.randn((3, 3, cin, cout), generator=gen) * 0.3).to(dev)
@@ -120,14 +155,18 @@ def conv_phase(dev, report: dict) -> dict:
             nbytes = 4 * (x.numel() + wt.numel() + b.numel() + n * ho * wo * cout)
             ops = 2 * 9 * cin * cout * n * ho * wo
             b_ms, by = bound(nbytes, ops, FP32_FLOPS)
+
+            def run():
+                return conv.conv2d3x3(x, wt, b, stride=s, relu=relu)
             row.update(
-                ms=time_ms(lambda: conv.conv2d3x3(x, wt, b, stride=s, relu=relu)),
-                plain_ms=time_ms(lambda: conv.conv2d3x3_plain(
+                ms=device_ms(run, kernel="conv3x3_kernel"),
+                wall_ms=wall_ms(run),
+                plain_ms=device_ms(lambda: conv.conv2d3x3_plain(
                     x, wt, b, stride=s, relu=relu), iters=5),
-                library_ms=time_ms(lambda: F.conv2d(xl, wl, b, stride=s)),
+                library_ms=device_ms(lambda: F.conv2d(xl, wl, b, stride=s)),
                 bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=ops)
             if in_summary:
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms"):
                     summary[k] += row[k]
                 summary["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
                 summary["ops_ms"] += ops / FP32_FLOPS * 1e3
@@ -201,10 +240,13 @@ def enhance_phase(dev, shape, report: dict) -> dict:
     report["fused_enhance_checks"] = checks + [
         {"regulated_max_abs_err": reg_err}, {"full_field": list(shape),
                                             "identical": True}]
+    def run():
+        return fe.fused_enhance(zf, decf, origf, ebf)
     return {"max_abs_err": 0.0,
-            "ms": time_ms(lambda: fe.fused_enhance(zf, decf, origf, ebf)),
-            "plain_ms": time_ms(lambda: fe.fused_enhance_plain(zf, decf, origf, ebf),
-                                iters=5),
+            "ms": device_ms(run, kernel="fused_enhance_kernel"),
+            "wall_ms": wall_ms(run),
+            "plain_ms": device_ms(lambda: fe.fused_enhance_plain(zf, decf, origf, ebf),
+                                  iters=5),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "timed_at": f"one float32 strict call over a {shape} field"}
 

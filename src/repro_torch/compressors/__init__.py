@@ -3,6 +3,7 @@
 The port has one so far: ``szlike`` with the interpolation predictor.
 Dispatch goes by compressor name on the way in and by the archive's
 ``kind`` on the way out; anything else is not ported yet and raises.
+Both run on ``cuda`` unless the caller passes another device.
 """
 from ..roadmap import unported
 from . import codec, entropy, outliers, szlike  # noqa: F401
@@ -16,13 +17,13 @@ def _check_kind(arc: dict) -> None:
 
 
 def compress(x, rel_eb=None, *, abs_eb=None, compressor="szlike",
-             device="cpu"):
+             device=None):
     if compressor != "szlike":
         raise unported(f"compressor {compressor!r}", _ITEM)
     return szlike.compress(x, rel_eb, abs_eb=abs_eb, device=device)
 
 
-def decompress(arc: dict, device="cpu"):
+def decompress(arc: dict, device=None):
     _check_kind(arc)
     return szlike.decompress(arc, device=device)
 

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from .. import device as device_lib
 from ..roadmap import unported
 from . import codec, entropy
 from .quantize import CODE_CAP, abs_bound_from_rel
@@ -217,14 +218,16 @@ def _interp_decode(pad_shape, eb: float, level: int, phases, mean: float,
 def compress(x: np.ndarray, rel_eb: float | None = None, *,
              abs_eb: float | None = None,
              config: SZLikeConfig = SZLikeConfig(),
-             device="cpu") -> tuple[dict, np.ndarray]:
-    """Compress ``x`` on ``device``; returns ``(archive, reconstruction)``.
+             device=None) -> tuple[dict, np.ndarray]:
+    """Compress ``x`` on ``device`` (``cuda`` unless given); returns
+    ``(archive, reconstruction)``.
 
     The reconstruction is exactly what :func:`decompress` will produce, so
     the enhancer trains against it without a decode round trip.
     """
     if config.predictor != "interp":
         raise unported(f"predictor {config.predictor!r}", _LORENZO_ITEM)
+    device = device_lib.resolve(device)
     x = np.asarray(x)
     if x.ndim not in (2, 3):
         raise ValueError(f"expected 2-D or 3-D field, got shape {x.shape}")
@@ -258,11 +261,13 @@ def compress(x: np.ndarray, rel_eb: float | None = None, *,
     return arc, rec_np.astype(orig_dtype, copy=False)
 
 
-def decompress(arc: dict, device="cpu") -> np.ndarray:
+def decompress(arc: dict, device=None) -> np.ndarray:
+    """Decode on ``device`` (``cuda`` unless given)."""
     if arc["kind"] != "szlike":
         raise ValueError("not an szlike archive")
     if arc["predictor"] != "interp":
         raise unported(f"predictor {arc['predictor']!r}", _LORENZO_ITEM)
+    device = device_lib.resolve(device)
     level = arc["level"]
     _, phases = _interp_schedule(tuple(arc["shape"]), level)
     rec = _interp_decode(tuple(arc["pad_shape"]), arc["eb_int"], level, phases,

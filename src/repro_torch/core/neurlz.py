@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import compressors
+from .. import device as device_lib
 from ..compressors import outliers as outlier_codec
 from ..roadmap import unported
 from . import archive as arc_io
@@ -139,15 +140,16 @@ def assemble_archive(fields: Mapping, out_fields: dict, config: NeurLZConfig,
 
 def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
                   abs_eb=None, config: NeurLZConfig = NeurLZConfig(),
-                  collect_stats: bool = True, device="cpu",
+                  collect_stats: bool = True, device=None,
                   init_params: Mapping | None = None,
                   batch_schedules: Mapping | None = None) -> dict:
-    """Compress one snapshot with the serial engine; returns the archive
-    dict.  ``init_params`` (field -> parameter tree of numpy arrays) and
-    ``batch_schedules`` (field -> ``[epochs, steps, batch]`` indices) fix
-    the enhancer's start and batch order, e.g. to the JAX package's."""
+    """Compress one snapshot with the serial engine on ``device`` (``cuda``
+    unless given); returns the archive dict.  ``init_params`` (field ->
+    parameter tree of numpy arrays) and ``batch_schedules`` (field ->
+    ``[epochs, steps, batch]`` indices) fix the enhancer's start and batch
+    order, e.g. to the JAX package's."""
     config.check()
-    device = torch.device(device)
+    device = device_lib.resolve(device)
     init_params = init_params or {}
     batch_schedules = batch_schedules or {}
     t = {k: 0.0 for k in ("conv_s", "train_s", "predict_s", "enhance_s",
@@ -259,9 +261,11 @@ def apply_decoded_entry(entry: dict, rec: np.ndarray, resid_norm: torch.Tensor,
 
 
 def decode_field_entry(e: dict, rec: np.ndarray, aux: list, slice_axis: int,
-                       device="cpu") -> np.ndarray:
-    """Single-field decode from its archive entry and the conventional
-    reconstructions (its own and its aux fields')."""
+                       device=None) -> np.ndarray:
+    """Single-field decode on ``device`` (``cuda`` unless given) from its
+    archive entry and the conventional reconstructions (its own and its aux
+    fields')."""
+    device = device_lib.resolve(device)
     if e.get("degraded"):
         # Conv-only entry: the conventional reconstruction is the decode.
         return np.asarray(rec)
@@ -273,8 +277,10 @@ def decode_field_entry(e: dict, rec: np.ndarray, aux: list, slice_axis: int,
     return apply_decoded_entry(e, rec, resid, slice_axis).cpu().numpy()
 
 
-def decompress(arc, device="cpu") -> dict[str, np.ndarray]:
-    """Decode every field of an archive (dict or ``Archive``)."""
+def decompress(arc, device=None) -> dict[str, np.ndarray]:
+    """Decode every field of an archive (dict or ``Archive``) on ``device``
+    (``cuda`` unless given)."""
+    device = device_lib.resolve(device)
     slice_axis = arc["slice_axis"]
     recs = {name: compressors.decompress(e["conv"], device=device)
             for name, e in arc["fields"].items()}

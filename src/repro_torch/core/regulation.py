@@ -15,27 +15,12 @@ decides, nothing probes or falls back.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..kernels import fused_enhance as _kernel
+# The unfused steps (Fig. 5): the pieces of the kernel's plain version.
+from ..kernels.fused_enhance import apply_strict, enhance, outlier_mask  # noqa: F401
 
 MODES = ("strict", "relaxed", "unregulated")
-
-
-def enhance(decomp, resid_norm, eb: float, out_dtype=None) -> torch.Tensor:
-    """X̂ = X' + R̂, with R̂ = resid_norm · eb."""
-    out_dtype = out_dtype or decomp.dtype
-    return (decomp.double() + resid_norm.double() * eb).to(out_dtype)
-
-
-def outlier_mask(orig, enhanced, eb: float) -> torch.Tensor:
-    """Points where the final-dtype enhanced value violates the 1× bound."""
-    return torch.abs(enhanced.double() - orig.double()) > eb
-
-
-def apply_strict(enhanced, decomp, mask) -> torch.Tensor:
-    """Outliers take the in-bound decompressed value (Fig. 5)."""
-    return torch.where(mask, decomp, enhanced)
 
 
 def fused_enhance(decomp, resid_norm, orig, eb: float, *, mode: str = "strict"):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import device as device_lib
 from ..kernels.conv2d3x3 import conv3x3
 
 LAYERS = ("conv_in", "down1", "down2", "down3", "down4",
@@ -148,12 +149,14 @@ class _Layer(nn.Module):
 
 
 class SkippingDNN(nn.Module):
-    """The enhancer as a module; ``params`` is a tree of tensors (default:
-    :func:`init_params` from ``generator``)."""
+    """The enhancer as a module on ``device`` (``cuda`` unless given);
+    ``params`` is a tree of tensors (default: :func:`init_params` from
+    ``generator``)."""
 
     def __init__(self, cfg: SkippingDNNConfig, params: dict | None = None, *,
-                 generator: torch.Generator | None = None, device="cpu"):
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
+        device = device_lib.resolve(device)
         self.cfg = cfg
         params = init_params(cfg, generator) if params is None else params
         for name, (cin, cout) in layer_channels(cfg).items():

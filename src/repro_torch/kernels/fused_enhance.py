@@ -21,14 +21,31 @@ launches = 0
 _lib = None
 
 
+def enhance(decomp, resid_norm, eb: float, out_dtype=None) -> torch.Tensor:
+    """X̂ = X' + R̂, with R̂ = resid_norm · eb, in float64, cast once."""
+    out_dtype = out_dtype or decomp.dtype
+    return (decomp.double() + resid_norm.double() * eb).to(out_dtype)
+
+
+def outlier_mask(orig, enhanced, eb: float) -> torch.Tensor:
+    """Points where the final-dtype enhanced value violates the 1× bound."""
+    return torch.abs(enhanced.double() - orig.double()) > eb
+
+
+def apply_strict(enhanced, decomp, mask) -> torch.Tensor:
+    """Outliers take the in-bound decompressed value."""
+    return torch.where(mask, decomp, enhanced)
+
+
 def fused_enhance_plain(z, dec, orig, eb: float, *, regulated: bool = False,
                         strict: bool = True):
     """Plain version: the same float64 ops as the kernel, one per tensor op."""
     zd = z.double()
-    r = (2.0 * torch.sigmoid(zd) - 1.0) * eb if regulated else zd * eb
-    enh = (dec.double() + r).to(dec.dtype)
-    bad = torch.abs(enh.double() - orig.double()) > eb
-    out = torch.where(bad, dec, enh) if strict else enh
+    if regulated:
+        zd = 2.0 * torch.sigmoid(zd) - 1.0
+    enh = enhance(dec, zd, eb)
+    bad = outlier_mask(orig, enh, eb)
+    out = apply_strict(enh, dec, bad) if strict else enh
     return out, bad.to(torch.uint8)
 
 

@@ -7,6 +7,7 @@ import jax
 import msgpack
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -20,6 +21,10 @@ from repro_torch.compressors import entropy as port_entropy
 from repro_torch.compressors import outliers as port_outliers
 from repro_torch.core import archive as port_archive
 from repro_torch.core import skipping_dnn as port_dnn
+
+# The suite runs in parallel workers on a few cores: one intra-op thread
+# per worker keeps the port's tests from crowding out the others.
+torch.set_num_threads(1)
 
 _INT_EDGES = [0, 1, 31, 32, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32,
               2**64 - 1, -1, -32, -33, -128, -129, -32768, -32769, -2**31,
@@ -96,7 +101,7 @@ def test_pack_weights_byte_identical(weight_dtype):
     np_params = jax.tree.map(np.asarray, ref_params)
     model = port_dnn.SkippingDNN(
         port_dnn.SkippingDNNConfig(c_in=2),
-        port_dnn.params_from_jax(np_params))
+        port_dnn.params_from_jax(np_params), device="cpu")
     blob = port_archive.pack_weights(model.tree(), weight_dtype)
     assert blob == ref_archive.pack_weights(ref_params, weight_dtype)
     assert blob["n_params"] == ref_dnn.param_count(ref_params)

@@ -12,6 +12,7 @@ batch order carried across, then decode.
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro
 import repro_torch
@@ -19,8 +20,14 @@ from repro.compressors import szlike as ref_sz
 from repro.core import online_trainer as ref_trainer
 from repro.core import skipping_dnn as ref_dnn
 from repro.data import fields as ref_fields
+from repro_torch import compressors
 from repro_torch.compressors import szlike as port_sz
 from repro_torch.core import metrics, neurlz, online_trainer
+from repro_torch.core import skipping_dnn as port_dnn
+
+# The suite runs in parallel workers on a few cores: one intra-op thread
+# per worker keeps the port's tests from crowding out the others.
+torch.set_num_threads(1)
 
 SHAPE = (9, 20, 24)      # the shape of test_torch_szlike: one JAX compile
 EPOCHS, SEED, REL_EB = 2, 0, 1e-3
@@ -76,7 +83,7 @@ def test_main_path_matches_reference(tmp_path):
 
         # The engine's own encoder helpers, run again from the archived
         # weights: decode reproduces the encoder's final field bit for bit.
-        rec = port_sz.decompress(e["conv"])
+        rec = port_sz.decompress(e["conv"], device="cpu")
         model = neurlz.decode_entry_net(e, "cpu")
         inputs, _, _ = online_trainer.make_dataset(rec, x, eb)
         resid = online_trainer.predict_residual(model, inputs)
@@ -94,7 +101,8 @@ def test_main_path_matches_reference(tmp_path):
     for name in FIELDS:
         conv = seen_by_ref["fields"][name]["conv"]
         assert (ref_sz.decompress(conv).tobytes()
-                == port_sz.decompress(arc["fields"][name]["conv"]).tobytes())
+                == port_sz.decompress(arc["fields"][name]["conv"],
+                                     device="cpu").tobytes())
         # The port decoding the reference's weights: float32 tolerance.
         eb = ref_arc["fields"][name]["abs_eb"]
         assert _max_err(port_on_ref[name], ref_dec[name]) <= 1e-3 * eb
@@ -140,3 +148,37 @@ def test_missing_gpu_is_an_error(monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.NeurLZ()
+
+
+@pytest.fixture(scope="module")
+def tiny_arc():
+    x = FIELDS["w"][:4]
+    return x, neurlz.compress_impl({"w": x}, REL_EB, device="cpu",
+                                   config=neurlz.NeurLZConfig(epochs=1))
+
+
+# Every layer's entry point defaults to the card: without one it raises
+# instead of running on the CPU.
+DEFAULT_CUDA_CALLS = {
+    "compressors.compress": lambda x, arc: compressors.compress(x, REL_EB),
+    "compressors.decompress":
+        lambda x, arc: compressors.decompress(arc["fields"]["w"]["conv"]),
+    "szlike.compress": lambda x, arc: port_sz.compress(x, REL_EB),
+    "szlike.decompress":
+        lambda x, arc: port_sz.decompress(arc["fields"]["w"]["conv"]),
+    "neurlz.compress_impl": lambda x, arc: neurlz.compress_impl(
+        {"w": x}, REL_EB, config=neurlz.NeurLZConfig(epochs=1)),
+    "neurlz.decompress": lambda x, arc: neurlz.decompress(arc),
+    "neurlz.decode_field_entry":
+        lambda x, arc: neurlz.decode_field_entry(arc["fields"]["w"], x, [], 0),
+    "SkippingDNN": lambda x, arc: port_dnn.SkippingDNN(port_dnn.SkippingDNNConfig()),
+    "Archive.from_dict": lambda x, arc: repro_torch.Archive.from_dict(arc),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_CUDA_CALLS))
+def test_entry_points_default_to_cuda(monkeypatch, tiny_arc, name):
+    x, arc = tiny_arc
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DEFAULT_CUDA_CALLS[name](x, arc)

@@ -16,6 +16,10 @@ from repro_torch.core import regulation as port_regulation
 from repro_torch.kernels import conv2d3x3 as port_conv
 from repro_torch.kernels import fused_enhance as port_fe
 
+# The suite runs in parallel workers on a few cores: one intra-op thread
+# per worker keeps the port's tests from crowding out the others.
+torch.set_num_threads(1)
+
 
 # (H, W, Cin, Cout, stride): the 17×13 probe shape, stride 2 on odd and on
 # even sizes (XLA pads lo=0, hi=1 there), Cout=1 (the network head).

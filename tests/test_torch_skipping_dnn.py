@@ -13,17 +13,22 @@ from repro.core import skipping_dnn as ref_dnn
 from repro_torch.core import online_trainer as port_trainer
 from repro_torch.core import skipping_dnn as port_dnn
 
+# The suite runs in parallel workers on a few cores: one intra-op thread
+# per worker keeps the port's tests from crowding out the others.
+torch.set_num_threads(1)
+
 def _nets(c_in=1, regulated=True, skip=True, seed=3):
     ref_cfg = ref_dnn.SkippingDNNConfig(c_in=c_in, regulated=regulated, skip=skip)
     ref_params = ref_dnn.init_params(jax.random.PRNGKey(seed), ref_cfg)
     model = port_dnn.SkippingDNN(
         port_dnn.SkippingDNNConfig(c_in=c_in, regulated=regulated, skip=skip),
-        port_dnn.params_from_jax(jax.tree.map(np.asarray, ref_params)))
+        port_dnn.params_from_jax(jax.tree.map(np.asarray, ref_params)),
+        device="cpu")
     return ref_params, model
 
 
 def test_param_count_is_the_papers():
-    model = port_dnn.SkippingDNN(port_dnn.SkippingDNNConfig(c_in=1))
+    model = port_dnn.SkippingDNN(port_dnn.SkippingDNNConfig(c_in=1), device="cpu")
     assert sum(p.numel() for p in model.parameters()) == 3073
 
 

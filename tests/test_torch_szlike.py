@@ -4,6 +4,7 @@ float64 elementwise arithmetic with round-half-even in both), and each
 package decodes the other's archive to the same bytes."""
 import numpy as np
 import pytest
+import torch
 
 from repro.compressors import quantize as ref_quantize
 from repro.compressors import szlike as ref_sz
@@ -11,6 +12,10 @@ from repro.data import fields as ref_fields
 from repro_torch.compressors import quantize as port_quantize
 from repro_torch.compressors import szlike as port_sz
 from repro_torch.compressors.quantize import CODE_CAP
+
+# The suite runs in parallel workers on a few cores: one intra-op thread
+# per worker keeps the port's tests from crowding out the others.
+torch.set_num_threads(1)
 
 SHAPE = (9, 20, 24)
 
@@ -54,4 +59,5 @@ def test_payloads_and_rec_byte_identical(dataset, rel_eb):
 def test_lorenzo_predictor_names_its_roadmap_item():
     x = np.zeros((5, 6, 7), np.float32)
     with pytest.raises(NotImplementedError, match="szlike-lorenzo"):
-        port_sz.compress(x, 1e-3, config=port_sz.SZLikeConfig(predictor="lorenzo"))
+        port_sz.compress(x, 1e-3, config=port_sz.SZLikeConfig(predictor="lorenzo"),
+                         device="cpu")
