@@ -13,18 +13,26 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    forward (N=10 training batches and N=64 inference chunks of 512×512
    slices) plus odd sizes, stride 2 and Cout=1; ``fused_enhance`` byte for
    byte in float32 and float64, strict and relaxed, on the double-rounding
-   canary and on a full field;
+   canary and on a full field; ``lorenzo3d_fwd`` and ``lorenzo3d_inv`` byte
+   for byte on the stacked float64 group of the snapshot's three fields
+   (each with its own bound) and on the reference's probe canaries;
 4. the main path at the paper's Hurricane-ISABEL size (three fields of
    100×500×500 float32, synthetic, from a seed): ``NeurLZ(device="cuda")
    .compress`` at rel_eb 1e-3 in strict mode, ``save``, ``Archive.open``,
    ``decode_all``; the 1× bound is checked on every field, and for one field
    the engine's encoder helpers are run again from the archived weights and
-   the decode must equal the encoder's final field bit for bit;
-5. the launch count of every kernel over the main path (each must be > 0);
-6. a torch.profiler trace of ten training steps (device-busy share).
+   the decode must equal the encoder's final field bit for bit; then a
+   torch.profiler trace of ten training steps (device-busy share);
+5. the Lorenzo path on the same snapshot: ``NeurLZ(compressor=
+   "szlike-lorenzo")``, its conventional stage one batched group of three
+   fields, the same checks on every field;
+6. a ``zfplike`` conventional round trip on one full field;
+7. the launch count of every kernel over each path, counted from 0 just
+   before the path: each kernel of a path must have launched in it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
-summed from a torch.profiler trace, so host time between launches is not in
+summed from a torch.profiler trace that must hold every launch of the
+timed calls (``device_ms``), so host time between launches is not in
 them; ``wall_ms`` is the kernel wrapper's time per call back to back between
 CUDA events, which holds the host's cost of a call where that is longer.
 
@@ -85,32 +93,70 @@ def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None
-              ) -> float:
+# The device's timestamps reach the host's clock with an offset that moves
+# by milliseconds from trace to trace, and the profiler drops every device
+# activity that falls outside its window: a short trace can come back with
+# part of its kernels or none (scripts/profiler_trace_probe.py).  Each trace
+# therefore pauses the host on both sides of the traced calls, and one that
+# is still incomplete is taken again, at most TRACE_TRIES times in all.
+TRACE_PAD_S = 0.005
+TRACE_TRIES = 4
+# Calls of device_ms that needed more than one trace: {name: traces taken}.
+RETRACED: dict[str, int] = {}
+
+
+def traced(fn):
+    """Run ``fn()`` inside a torch.profiler trace whose window reaches
+    TRACE_PAD_S past the device work on both sides; returns the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    return prof
+
+
+def device_events(prof) -> list:
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
+              per_call: int = 1, name: str | None = None) -> float:
     """Mean device time of one call of ``fn``: the summed durations of the
     device activities (kernels, copies, fills) of ``iters`` calls in a
     torch.profiler trace, over ``iters``.  Host time between launches is not
-    in it.  With ``kernel``, the trace must show exactly ``iters`` kernels
-    whose name holds that string (one launch per call, each seen)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    in it.  The trace must be complete: with ``kernel``, exactly
+    ``per_call`` kernels per call whose name holds that string; without,
+    a positive multiple of ``iters`` device activities.  An incomplete
+    trace is taken again (noted in ``RETRACED``); after TRACE_TRIES
+    incomplete traces it raises."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise AssertionError("the profiler saw no device activity")
-    if kernel is not None:
-        seen = sum(kernel in e.name for e in events)
-        if seen != iters:
-            raise AssertionError(f"the profiler saw {seen} {kernel} kernels "
-                                 f"in {iters} calls")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    counts = []
+    for attempt in range(1, TRACE_TRIES + 1):
+        events = device_events(traced(calls))
+        seen = sum(kernel in e.name for e in events) if kernel else len(events)
+        counts.append(seen)
+        if (seen == iters * per_call if kernel
+                else seen > 0 and seen % iters == 0):
+            if attempt > 1:
+                RETRACED[name or kernel or "fn"] = attempt
+                print(f"device_ms: {name or kernel}: {attempt} traces "
+                      f"(device activities seen: {counts})")
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    raise AssertionError(
+        f"device_ms: {name or kernel}: {TRACE_TRIES} incomplete traces of "
+        f"{iters} calls (device activities seen: {counts}, want "
+        f"{iters * per_call if kernel else 'a positive multiple of ' + str(iters)})")
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -162,8 +208,10 @@ def conv_phase(dev, report: dict) -> dict:
                 ms=device_ms(run, kernel="conv3x3_kernel"),
                 wall_ms=wall_ms(run),
                 plain_ms=device_ms(lambda: conv.conv2d3x3_plain(
-                    x, wt, b, stride=s, relu=relu), iters=5),
-                library_ms=device_ms(lambda: F.conv2d(xl, wl, b, stride=s)),
+                    x, wt, b, stride=s, relu=relu), iters=5,
+                    name=f"conv2d3x3_plain {name}"),
+                library_ms=device_ms(lambda: F.conv2d(xl, wl, b, stride=s),
+                                     name=f"cuDNN {name}"),
                 bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=ops)
             if in_summary:
                 for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms"):
@@ -246,9 +294,119 @@ def enhance_phase(dev, shape, report: dict) -> dict:
             "ms": device_ms(run, kernel="fused_enhance_kernel"),
             "wall_ms": wall_ms(run),
             "plain_ms": device_ms(lambda: fe.fused_enhance_plain(zf, decf, origf, ebf),
-                                  iters=5),
+                                  iters=5, name="fused_enhance_plain"),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "timed_at": f"one float32 strict call over a {shape} field"}
+
+
+def _bits_equal(a, b) -> bool:
+    """Same dtype, shape and bytes, compared on the device."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.float64: torch.int64, torch.float32: torch.int32}.get(a.dtype)
+    return bool(torch.equal(a.view(view), b.view(view)) if view else torch.equal(a, b))
+
+
+def _probe_groups():
+    """The reference's Lorenzo probe canaries (``szlike._lorenzo_jit_probe``
+    and ``_probe_against_eager``: a NaN, a CODE_CAP overflow, 2**25 + 0.5
+    under a float32 cast, odd sizes, per-field bounds) and a 2-D group of
+    odd size with an infinity and a lattice half point."""
+    import numpy as np
+    rng = np.random.default_rng(12345)
+    a = np.cumsum(rng.standard_normal((2, 5, 7, 3)), axis=1).astype(np.float32)
+    a[0, 0, 0, 0] = np.nan
+    a[0, 1, 2, 0] = 3.0e9
+    a[1, 2, 3, 1] = np.float32(2 ** 25) + 0.5
+    rng = np.random.default_rng(99)
+    b = np.cumsum(rng.standard_normal((1, 6, 5, 4)), axis=1).astype(np.float32)
+    b[0, 0, 0, 0] = 4.0e9
+    rng = np.random.default_rng(3)
+    c = rng.standard_normal((3, 11, 13)) * 5
+    c[0, 1, 1], c[1, 4, 2], c[2, 3, 3] = np.inf, 1e12, 0.6 * 2.5
+    return [("jit_probe", a, [1e-3, 2e-2]), ("eager_probe", b, [1e-3]),
+            ("planar_odd", c, [1e-3, 5e-2, 0.3])]
+
+
+def lorenzo_phase(dev, fields, report: dict) -> dict:
+    """Both Lorenzo kernels against their plain versions, byte for byte, on
+    the canaries and on the stacked float64 group of the snapshot's fields
+    (each with its own rel 1e-3 bound, float32 cast check), then timed."""
+    import numpy as np
+    import torch
+    from repro_torch.compressors.quantize import abs_bound_from_rel
+    from repro_torch.kernels import lorenzo3d as lz
+
+    def check(name, x, eb, out_dtype):
+        got = lz.lorenzo3d_fwd(x, eb, out_dtype)
+        want = lz.lorenzo_encode_plain(x, eb, out_dtype)
+        if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"lorenzo3d_fwd differs from plain: {name}, "
+                                 f"{out_dtype}")
+        if not _bits_equal(lz.lorenzo3d_inv(got[0], eb),
+                           lz.lorenzo_decode_plain(got[0], eb)):
+            raise AssertionError(f"lorenzo3d_inv differs from plain: {name}")
+        torch.cuda.synchronize()
+        return got
+
+    checks = []
+    for name, a, ebs in _probe_groups():
+        eb = torch.tensor(ebs, dtype=torch.float64, device=dev)
+        for out_dtype in (torch.float32, torch.float64):
+            got = check(name, torch.from_numpy(a.astype(np.float64)).to(dev),
+                        eb, out_dtype)
+            checks.append({"group": name, "shape": list(a.shape),
+                           "out_dtype": str(out_dtype), "identical": True,
+                           "escapes": int(got[1].sum())})
+
+    ebs = [abs_bound_from_rel(v, 1e-3) * (1.0 - 1e-9) for v in fields.values()]
+    eb = torch.tensor(ebs, dtype=torch.float64, device=dev)
+    x = torch.from_numpy(np.stack([v.astype(np.float64)
+                                   for v in fields.values()])).to(dev)
+    delta, unpred, _ = check("snapshot", x, eb, torch.float32)
+    checks.append({"group": "snapshot", "shape": list(x.shape),
+                   "out_dtype": "torch.float32", "identical": True,
+                   "escapes": int(unpred.sum())})
+    report["lorenzo3d_checks"] = checks
+    n, nf = x.numel(), x.shape[0]
+    where = f"one call over the stacked {list(x.shape)} float64 group"
+    # Bytes: each input read once, each output written once.  Operations:
+    # the float64 divide, round, multiply, subtract and compare and the
+    # seven integer adds of the delta (forward); three adds and a multiply
+    # (inverse), all counted at the float64 rate: both are byte-bound.
+    fwd_bytes, inv_bytes = n * (8 + 4 + 1 + 8) + nf * 8, n * (4 + 8) + nf * 8
+    fwd_bound, fwd_by = bound(fwd_bytes, 12 * n, FP64_FLOPS)
+    inv_bound, inv_by = bound(inv_bytes, 4 * n, FP64_FLOPS)
+
+    def fwd():
+        return lz.lorenzo3d_fwd(x, eb, torch.float32)
+
+    def inv():
+        return lz.lorenzo3d_inv(delta, eb)
+    out = {
+        "lorenzo3d_fwd": {
+            "max_abs_err": 0.0, "ms": device_ms(fwd, kernel="lorenzo3d_fwd_kernel"),
+            "wall_ms": wall_ms(fwd),
+            "plain_ms": device_ms(lambda: lz.lorenzo_encode_plain(
+                x, eb, torch.float32), iters=5, name="lorenzo_encode_plain"),
+            "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
+            "library": "none: no one PyTorch call computes it",
+            "bytes": fwd_bytes, "timed_at": where},
+        "lorenzo3d_inv": {
+            "max_abs_err": 0.0,
+            "ms": device_ms(inv, kernel="lorenzo3d_inv", per_call=2),
+            "wall_ms": wall_ms(inv),
+            "plain_ms": device_ms(lambda: lz.lorenzo_decode_plain(delta, eb),
+                                  iters=5, name="lorenzo_decode_plain"),
+            "bound_ms": inv_bound, "bound_by": inv_by, "library_ms": None,
+            "library": "none: the torch.cumsum chain is three calls and is "
+                       "its plain version",
+            "bytes": inv_bytes, "timed_at": where + " (two launches)"},
+    }
+    for k, v in out.items():
+        print(k, json.dumps(v))
+    return out
 
 
 def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
@@ -257,7 +415,6 @@ def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
     of the CUDA kernels' durations; one stream, so they do not overlap),
     kernels per step and the kernels that take the most time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import online_trainer
     from repro_torch.optim import AdamW
 
@@ -274,15 +431,18 @@ def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
 
     for i in range(3):
         step(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def steps_run():
         t0 = time.perf_counter()
         for i in range(steps):
             step(i)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall.append(time.perf_counter() - t0)
+    kernels = device_events(traced(steps_run))
+    if not kernels:
+        raise AssertionError("the training-step trace held no device activity")
+    wall = wall[0]
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -316,19 +476,15 @@ def profile_conv_stage(x, dev) -> dict:
             "codec_s": codec_s}
 
 
-def main_path(dev, shape, epochs: int, report: dict) -> dict:
+def main_path(dev, fields, epochs: int, report: dict) -> dict:
     import numpy as np
     import torch
     import repro_torch
     from repro_torch import kernels
     from repro_torch.compressors import szlike
     from repro_torch.core import metrics, neurlz, online_trainer, regulation
-    from repro_torch.data import fields as fields_lib
 
-    t = time.perf_counter()
-    fields = fields_lib.make_fields("hurricane", shape, seed=0)
-    print(f"data: hurricane {shape} x {list(fields)} float32, "
-          f"{time.perf_counter() - t:.1f} s to generate")
+    shape = next(iter(fields.values())).shape
     raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
     path = ROOT / "build" / "chip_smoke" / "hurricane.nlz"
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -403,6 +559,103 @@ def main_path(dev, shape, epochs: int, report: dict) -> dict:
     return launches
 
 
+def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
+    """``NeurLZ(compressor="szlike-lorenzo")`` on the snapshot: one batched
+    conventional group of three fields, the strict bound and decode equal to
+    the encoder's final field on every field."""
+    import torch
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.compressors import szlike
+    from repro_torch.core import metrics, neurlz, online_trainer, regulation
+
+    raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
+    path = ROOT / "build" / "chip_smoke" / "hurricane_lorenzo.nlz"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess = repro_torch.NeurLZ(compressor="szlike-lorenzo", conv_batch=True,
+                              epochs=epochs, device=dev)
+    arc = sess.compress(fields, rel_eb=1e-3)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+    nbytes = arc.save(path)
+    t0 = time.perf_counter()
+    opened = repro_torch.Archive.open(path, device=dev)
+    decoded = opened.decode_all()
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    stage = arc["timing"]["conv_stage"]
+    if (stage["groups"], stage["calls"], stage["batched_fields"]) != (1, 1, 3):
+        raise AssertionError(f"Lorenzo conventional stage was not one fused "
+                             f"group of 3 fields: {stage}")
+    per_field = {}
+    for name, x in fields.items():
+        e = opened["fields"][name]
+        eb = e["abs_eb"]
+        chk = regulation.check_bound(x, decoded[name], eb, "strict")
+        if not chk["ok"]:
+            raise AssertionError(f"lorenzo {name}: max error "
+                                 f"{chk['max_abs_err']} > {eb}")
+        rec = szlike.decompress(e["conv"], device=dev)
+        model = neurlz.decode_entry_net(e, dev)
+        inputs, _, _ = online_trainer.make_dataset(rec, x, eb)
+        resid = online_trainer.predict_residual(model, inputs)
+        final, mask = neurlz.enhance_and_mask(x, rec, resid, eb, sess.config)
+        if final.cpu().numpy().tobytes() != decoded[name].tobytes():
+            raise AssertionError(f"lorenzo {name}: decode differs from the "
+                                 "encoder's field")
+        if int(mask.sum()) != e["outliers"]["count"]:
+            raise AssertionError(f"lorenzo {name}: outlier mask differs")
+        per_field[name] = {
+            "abs_eb": eb, "max_err_over_eb": chk["max_abs_err"] / eb,
+            "psnr_conv": metrics.psnr(x, rec),
+            "psnr_enhanced": metrics.psnr(x, decoded[name]),
+            "bitrate": opened.bitrate(name)["bitrate"],
+            "conv_bitrate": opened.bitrate(name)["conv_bitrate"],
+            "outlier_rate": e["outliers"]["count"] / x.size,
+            "final_loss": e["loss_history"][-1]}
+        print("lorenzo_field", name, json.dumps(per_field[name]))
+    out = {"compressor": "szlike-lorenzo", "epochs": epochs, "rel_eb": 1e-3,
+           "mode": "strict", "archive_bytes": nbytes,
+           "compress_s": t_compress, "decode_s": t_decode,
+           "compress_MB_per_s": raw_mb / t_compress,
+           "decode_MB_per_s": raw_mb / t_decode, "stages": dict(arc["timing"]),
+           "per_field": per_field, "launches": launches,
+           "decode_equals_encoder": True}
+    print("lorenzo_path", json.dumps({k: v for k, v in out.items()
+                                      if k != "per_field"}))
+    report["lorenzo_path"] = out
+    return launches
+
+
+def zfplike_round_trip(dev, x, report: dict) -> None:
+    """The ``zfplike`` conventional stage on one full field: the bound
+    holds and decode equals the encoder's reconstruction."""
+    import numpy as np
+    from repro_torch import compressors
+    from repro_torch.core import metrics
+
+    t0 = time.perf_counter()
+    arc, rec = compressors.compress(x, 1e-3, compressor="zfplike", device=dev)
+    t_compress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = compressors.decompress(arc, device=dev)
+    t_decode = time.perf_counter() - t0
+    if dec.tobytes() != rec.tobytes():
+        raise AssertionError("zfplike: decode differs from the encoder's rec")
+    err = float(np.abs(dec.astype(np.float64) - x).max())
+    if not err <= arc["abs_eb"]:
+        raise AssertionError(f"zfplike: max error {err} > {arc['abs_eb']}")
+    out = {"shape": list(x.shape), "abs_eb": arc["abs_eb"],
+           "max_err_over_eb": err / arc["abs_eb"], "psnr": metrics.psnr(x, dec),
+           "bitrate": compressors.archive_nbytes(arc) * 8 / x.size,
+           "compress_s": t_compress, "decode_s": t_decode}
+    print("zfplike_round_trip", json.dumps(out))
+    report["zfplike_round_trip"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=100)
@@ -441,26 +694,47 @@ def main() -> int:
     for n, lines in report["ptxas"].items():
         print(f"  {n}: " + " | ".join(ln.strip() for ln in lines))
 
+    from repro_torch.data import fields as fields_lib
+    t = time.perf_counter()
+    fields = fields_lib.make_fields("hurricane", shape, seed=0)
+    print(f"data: hurricane {shape} x {list(fields)} float32, "
+          f"{time.perf_counter() - t:.1f} s to generate")
+
     summaries = {"conv2d3x3": conv_phase(dev, report),
-                 "fused_enhance": enhance_phase(dev, shape, report)}
+                 "fused_enhance": enhance_phase(dev, shape, report),
+                 **lorenzo_phase(dev, fields, report)}
     if args.epochs < 100:
-        print(f"main path: epochs cut to {args.epochs} of the paper's 100 "
+        print(f"both paths: epochs cut to {args.epochs} of the paper's 100 "
               "(the shape is never cut)")
-    launches = main_path(dev, shape, args.epochs, report)
-    if not all(launches[k] > 0 for k in kernels.KERNELS):
-        raise AssertionError(f"a kernel never ran on the main path: {launches}")
+    # Each path runs with the counts set to 0 just before it; every kernel
+    # of a path must have launched in it.
+    by_path = {"main": main_path(dev, fields, args.epochs, report),
+               "lorenzo": lorenzo_path(dev, fields, args.epochs, report)}
+    path_kernels = {"main": ("conv2d3x3", "fused_enhance"),
+                    "lorenzo": tuple(kernels.KERNELS)}
+    for p, names in path_kernels.items():
+        if not all(by_path[p][k] > 0 for k in names):
+            raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")
+    zfplike_round_trip(dev, fields["w"], report)
 
     meta = {"conv2d3x3": ("src/repro_torch/csrc/conv2d3x3.cu",
-                          "src/repro/kernels/conv2d3x3.py:63"),
+                          "src/repro/kernels/conv2d3x3.py:73"),
             "fused_enhance": ("src/repro_torch/csrc/fused_enhance.cu",
-                              "src/repro/kernels/fused_enhance.py:49")}
+                              "src/repro/kernels/fused_enhance.py:59"),
+            "lorenzo3d_fwd": ("src/repro_torch/csrc/lorenzo3d.cu",
+                              "src/repro/kernels/lorenzo3d.py:81"),
+            "lorenzo3d_inv": ("src/repro_torch/csrc/lorenzo3d.cu",
+                              "src/repro/kernels/lorenzo3d.py:106")}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": meta[n][0], "replaces": meta[n][1],
-         "launches": launches[n], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+         "launches": sum(c[n] for c in by_path.values()),
+         "launches_by_path": {p: c[n] for p, c in by_path.items()},
+         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
          "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
         for n, s in summaries.items()]}
     report["kernels"] = line["kernels"]
+    report["retraced"] = RETRACED
     report["summaries"] = summaries
     report["total_s"] = time.perf_counter() - t_start
     out = Path(args.out)

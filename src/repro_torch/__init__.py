@@ -4,21 +4,24 @@ A port of the JAX package ``repro`` (which stays the reference) that
 imports neither JAX nor anything of ``repro``.  The main path is the
 paper's workload: ``NeurLZ(...).compress`` with the serial engine, the
 ``szlike`` interpolation predictor and strict regulation, then
-``Archive.decode``.  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; on CUDA tensors the ``conv2d3x3`` and ``fused_enhance``
-kernels run (``repro_torch.kernels``), on CPU tensors their plain PyTorch
-versions.
+``Archive.decode``; ``compressor="szlike-lorenzo"`` and ``"zfplike"`` and
+per-field ``bounds=`` run too.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``; on CUDA tensors the ``conv2d3x3``,
+``fused_enhance``, ``lorenzo3d_fwd`` and ``lorenzo3d_inv`` kernels run
+(``repro_torch.kernels``), on CPU tensors their plain PyTorch versions.
 
-Subpackages: ``core`` (enhancer, trainer, regulation, engine, archive),
-``compressors`` (szlike and the byte layer), ``kernels`` (CUDA kernels and
-their build), ``optim``, ``data`` (synthetic fields).
+Subpackages: ``core`` (enhancer, trainer, regulation, conventional stage,
+bounds, engine, archive), ``compressors`` (registry, szlike, zfplike and the
+byte layer), ``kernels`` (CUDA kernels and their build), ``optim``, ``data``
+(synthetic fields).
 """
 from .api import (EngineConfig, ModelConfig, NeurLZ, RegulationConfig,
                   join_config, split_config)
 from .core.archive_api import Archive
+from .core.bounds import ErrorBound
 from .core.neurlz import NeurLZConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["NeurLZ", "Archive", "ModelConfig", "EngineConfig",
+__all__ = ["NeurLZ", "Archive", "ErrorBound", "ModelConfig", "EngineConfig",
            "RegulationConfig", "NeurLZConfig", "join_config", "split_config"]

@@ -4,6 +4,8 @@
 
     sess = repro_torch.NeurLZ(epochs=100)            # runs on cuda
     arc = sess.compress(fields, rel_eb=1e-3)
+    arc = sess.compress(fields, bounds={"w": repro_torch.ErrorBound(abs=0.1)},
+                        rel_eb=1e-3)     # per-field bounds
     arc.save("snap.nlz")
     out = repro_torch.Archive.open("snap.nlz").decode_all()
 
@@ -46,7 +48,8 @@ class EngineConfig:
     """Which engine executes a compression run."""
 
     engine: str = "serial"
-    compressor: str = "szlike"
+    compressor: str = "szlike"          # szlike | szlike-lorenzo | zfplike
+    conv_batch: bool = True             # batched conventional stage
     telemetry: object | None = None
     faults: object | None = None
 
@@ -62,7 +65,6 @@ _REG_FIELDS = tuple(f.name for f in dataclasses.fields(RegulationConfig))
 
 # Knobs of the JAX package's engines that the port does not have yet.
 _UNPORTED_KNOBS = {
-    "conv_batch": "registry + conv_stage + szlike-lorenzo",
     "field_batching": "the batched engine",
     "group_size": "the batched engine",
     "prefetch": "the batched engine",
@@ -133,16 +135,19 @@ class NeurLZ:
                  batch_schedules: Mapping | None = None) -> Archive:
         """Compress one snapshot's fields into an :class:`Archive`.
 
+        ``bounds`` is the per-field error-bound surface: one
+        :class:`ErrorBound` (or bare relative bound) for every field, or a
+        mapping ``name -> spec`` whose missing fields fall back to
+        ``rel_eb``/``abs_eb``.  Each field honours its own bound and mode.
         ``init_params`` / ``batch_schedules`` optionally fix each field's
         initial enhancer weights and batch order (parity runs against the
         JAX package feed its ``init_params`` and ``epoch_batches``).
         """
-        if bounds is not None:
-            raise unported("bounds=", "bounds")
         arc = neurlz.compress_impl(
             fields, rel_eb, abs_eb=abs_eb, config=self.config,
             collect_stats=collect_stats, device=self.device,
-            init_params=init_params, batch_schedules=batch_schedules)
+            init_params=init_params, batch_schedules=batch_schedules,
+            bounds=bounds)
         return Archive.from_dict(arc, device=self.device)
 
     def decompress(self, archive) -> dict:

@@ -1,33 +1,14 @@
 """Conventional error-bounded compressors (the substrate NeurLZ enhances).
 
-The port has one so far: ``szlike`` with the interpolation predictor.
-Dispatch goes by compressor name on the way in and by the archive's
-``kind`` on the way out; anything else is not ported yet and raises.
-Both run on ``cuda`` unless the caller passes another device.
+Dispatch goes through the registry (:mod:`repro_torch.compressors.registry`):
+``compress`` resolves a registered compressor by name, ``decompress`` and
+``archive_nbytes`` the archive's ``kind`` tag; an unknown name or kind is an
+error.  Built-ins: ``szlike`` (interpolation predictor), ``szlike-lorenzo``
+(the ``lorenzo3d`` kernels) and ``zfplike``.  Entry points run on ``cuda``
+unless the caller passes another device.
 """
-from ..roadmap import unported
-from . import codec, entropy, outliers, szlike  # noqa: F401
+from . import codec, entropy, outliers, registry, szlike, zfplike  # noqa: F401
 from .quantize import CODE_CAP, abs_bound_from_rel  # noqa: F401
-from .szlike import _LORENZO_ITEM as _ITEM
+from .registry import archive_nbytes, compress, decompress, decompress_many  # noqa: F401
 
-
-def _check_kind(arc: dict) -> None:
-    if arc.get("kind") != "szlike":
-        raise unported(f"archive kind {arc.get('kind')!r}", _ITEM)
-
-
-def compress(x, rel_eb=None, *, abs_eb=None, compressor="szlike",
-             device=None):
-    if compressor != "szlike":
-        raise unported(f"compressor {compressor!r}", _ITEM)
-    return szlike.compress(x, rel_eb, abs_eb=abs_eb, device=device)
-
-
-def decompress(arc: dict, device=None):
-    _check_kind(arc)
-    return szlike.decompress(arc, device=device)
-
-
-def archive_nbytes(arc: dict) -> int:
-    _check_kind(arc)
-    return szlike.archive_nbytes(arc)
+registry._register_builtins()

@@ -1,20 +1,29 @@
 """Prediction-based error-bounded lossy compressor (SZ3-style), in PyTorch.
 
-The multilevel spline-interpolation predictor: reconstruct a coarse lattice
-first, then refine level by level and axis by axis, predicting each midpoint
-by cubic interpolation of already-reconstructed neighbours.  A phase has no
-sequential dependency, so it is a handful of elementwise tensor ops over
-strided views of the field.
+Two predictors, as in the JAX package:
 
-Determinism contract.  The walk runs in ``torch.float64`` on the given
-device, op for op as the JAX package runs it (divide, round-half-even, the
-cubic stencil written out term by term).  Eager PyTorch launches one kernel
-per op, so no multiply-add is ever contracted and every value is rounded
-where the reference rounds it: the codes, escape masks, literals and
-reconstruction are byte-identical to the JAX package's.  The stored ``mean``
-and the absolute bound are computed with numpy on the host, in the
-reference's summation order.  Encoder and decoder share the walk, so the
-encoder's ``rec`` equals the decoder's output bit for bit.
+* ``interp`` -- multilevel spline interpolation: reconstruct a coarse
+  lattice first, then refine level by level and axis by axis, predicting
+  each midpoint by cubic interpolation of already-reconstructed neighbours.
+  A phase has no sequential dependency, so it is a handful of elementwise
+  tensor ops over strided views of the field.
+* ``lorenzo`` -- cuSZ-style dual quantization: pre-quantize the field onto
+  the ``2 eb`` lattice, then take the 3-D first-order Lorenzo delta of the
+  integer grid.  Encode and decode are the ``lorenzo3d_fwd`` and
+  ``lorenzo3d_inv`` kernels (``repro_torch.kernels.lorenzo3d``), one launch
+  for a stacked group of same-shape fields.
+
+Determinism contract.  Both walks run in ``torch.float64`` on the given
+device, op for op as the JAX package's eager path runs them (divide,
+round-half-even, the cubic stencil written out term by term; the Lorenzo
+kernels write every float64 operation as a round-to-nearest intrinsic).
+Eager PyTorch launches one kernel per op, so no multiply-add is ever
+contracted and every value is rounded where the reference rounds it: the
+codes, escape masks, literals and reconstruction are byte-identical to the
+JAX package's.  The stored ``mean`` and the absolute bound are computed
+with numpy on the host, in the reference's summation order.  Encoder and
+decoder share the arithmetic, so the encoder's ``rec`` equals the decoder's
+output bit for bit.
 """
 from __future__ import annotations
 
@@ -25,12 +34,12 @@ import numpy as np
 import torch
 
 from .. import device as device_lib
+from ..kernels import lorenzo3d
 from ..roadmap import unported
 from . import codec, entropy
 from .quantize import CODE_CAP, abs_bound_from_rel
 
 _F64 = torch.float64
-_LORENZO_ITEM = "registry + conv_stage + szlike-lorenzo"
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -215,6 +224,66 @@ def _interp_decode(pad_shape, eb: float, level: int, phases, mean: float,
     return rec
 
 
+def _prepare(x, rel_eb, abs_eb, config: SZLikeConfig):
+    """``(abs_eb, eb_int, float64 work copy, mean)`` of one field, on the
+    host in the reference's order."""
+    if abs_eb is None:
+        if rel_eb is None:
+            raise ValueError("pass rel_eb or abs_eb")
+        abs_eb = abs_bound_from_rel(x, rel_eb)
+    work = x.astype(np.float64)
+    finite = work[np.isfinite(work)]
+    mean = float(finite.mean()) if finite.size else 0.0
+    return float(abs_eb), float(abs_eb) * (1.0 - config.eb_margin), work, mean
+
+
+def _lorenzo_archive(shape, dtype, abs_eb, eb_int, mean, codes, unpred, lits,
+                     level: int) -> dict:
+    arc = {
+        "kind": "szlike", "predictor": "lorenzo",
+        "shape": list(shape), "dtype": str(dtype),
+        "abs_eb": abs_eb, "eb_int": eb_int, "mean": mean,
+        "codes": entropy.encode_codes(codes, level),
+        "unpred": _encode_mask(unpred.ravel(), level),
+        "literals": entropy.encode_floats(lits, level),
+    }
+    arc["nbytes"] = archive_nbytes(arc)
+    return arc
+
+
+def _lorenzo_encode_group(works: list, eb_ints: list, dtype, device):
+    """One ``lorenzo3d_fwd`` over the stacked group: host ``(delta, unpred,
+    rec in the fields' dtype)``, each ``[F, *shape]``."""
+    stacked = torch.from_numpy(np.stack(works)).to(device)
+    d, un, rec = lorenzo3d.lorenzo3d_fwd(stacked, eb_ints, _torch_dtype(dtype))
+    return (d.cpu().numpy(), un.cpu().numpy(),
+            rec.to(_torch_dtype(dtype)).cpu().numpy())
+
+
+def _lorenzo_decode_group(arcs: list, device) -> list:
+    """One ``lorenzo3d_inv`` over a ``decode_key``-matched group, then each
+    field's literals patched back in row-major order and the cast to its
+    dtype."""
+    shape = tuple(arcs[0]["shape"])
+    delta = np.stack([entropy.decode_codes(a["codes"]).reshape(shape)
+                      for a in arcs])
+    rec = lorenzo3d.lorenzo3d_inv(torch.from_numpy(delta).to(device),
+                                  [a["eb_int"] for a in arcs])
+    outs = []
+    for f, a in enumerate(arcs):
+        r = rec[f]
+        mask = _decode_mask(a["unpred"]).reshape(shape)
+        if mask.any():
+            lits = np.asarray(entropy.decode_floats(a["literals"]).ravel(),
+                              np.float64)
+            # masked_scatter_ fills in row-major order, as the reference's
+            # ``out[m] = lits`` does.
+            r.masked_scatter_(torch.from_numpy(mask).to(device),
+                              torch.from_numpy(lits).to(device))
+        outs.append(r.to(_torch_dtype(np.dtype(a["dtype"]))).cpu().numpy())
+    return outs
+
+
 def compress(x: np.ndarray, rel_eb: float | None = None, *,
              abs_eb: float | None = None,
              config: SZLikeConfig = SZLikeConfig(),
@@ -225,22 +294,21 @@ def compress(x: np.ndarray, rel_eb: float | None = None, *,
     The reconstruction is exactly what :func:`decompress` will produce, so
     the enhancer trains against it without a decode round trip.
     """
-    if config.predictor != "interp":
-        raise unported(f"predictor {config.predictor!r}", _LORENZO_ITEM)
+    if config.predictor not in ("interp", "lorenzo"):
+        raise ValueError(f"unknown predictor {config.predictor!r}")
     device = device_lib.resolve(device)
     x = np.asarray(x)
     if x.ndim not in (2, 3):
         raise ValueError(f"expected 2-D or 3-D field, got shape {x.shape}")
     orig_dtype = x.dtype
-    if abs_eb is None:
-        if rel_eb is None:
-            raise ValueError("pass rel_eb or abs_eb")
-        abs_eb = abs_bound_from_rel(x, rel_eb)
-    eb_int = float(abs_eb) * (1.0 - config.eb_margin)
+    abs_eb, eb_int, work, mean = _prepare(x, rel_eb, abs_eb, config)
 
-    work = x.astype(np.float64)
-    finite = work[np.isfinite(work)]
-    mean = float(finite.mean()) if finite.size else 0.0
+    if config.predictor == "lorenzo":
+        # A one-field group: the stacked op sequence is the per-field one.
+        d, un, rec = _lorenzo_encode_group([work], [eb_int], orig_dtype, device)
+        arc = _lorenzo_archive(work.shape, orig_dtype, abs_eb, eb_int, mean,
+                               d[0], un[0], work[un[0]], config.zstd_level)
+        return arc, rec[0]
 
     level, phases = _interp_schedule(work.shape, config.max_level)
     padded, orig_shape = _pad_to_lattice(work, level)
@@ -251,7 +319,7 @@ def compress(x: np.ndarray, rel_eb: float | None = None, *,
     arc = {
         "kind": "szlike", "predictor": "interp", "level": level,
         "shape": list(orig_shape), "pad_shape": list(padded.shape),
-        "dtype": str(orig_dtype), "abs_eb": float(abs_eb), "eb_int": eb_int,
+        "dtype": str(orig_dtype), "abs_eb": abs_eb, "eb_int": eb_int,
         "mean": mean,
         "codes": entropy.encode_codes(codes, config.zstd_level),
         "unpred": _encode_mask(masks, config.zstd_level),
@@ -261,13 +329,52 @@ def compress(x: np.ndarray, rel_eb: float | None = None, *,
     return arc, rec_np.astype(orig_dtype, copy=False)
 
 
+def compress_batched(xs, rel_eb: float | None = None, *,
+                     abs_eb: float | None = None,
+                     config: SZLikeConfig = SZLikeConfig(),
+                     device=None) -> list:
+    """Compress a group of same-shape, same-dtype fields with the Lorenzo
+    predictor in one ``lorenzo3d_fwd`` launch; the host entropy stage stays
+    per field.  Payloads are byte-identical to one :func:`compress` call per
+    field: each field's bound and mean are derived as that path derives
+    them.  Returns ``[(archive, reconstruction), ...]`` in order.
+
+    The interpolation predictor's stacked walk comes with the batched
+    engine; until then it is compressed one field at a time.
+    """
+    if config.predictor != "lorenzo":
+        raise unported("the stacked interp walk (compress_batched)",
+                       "the batched engine")
+    device = device_lib.resolve(device)
+    arrs = [np.asarray(x) for x in xs]
+    if not arrs:
+        return []
+    shape, dtype = arrs[0].shape, arrs[0].dtype
+    if any(a.shape != shape or a.dtype != dtype for a in arrs):
+        raise ValueError("compress_batched needs same-shape/same-dtype fields")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"expected 2-D or 3-D fields, got shape {shape}")
+    if abs_eb is None and rel_eb is None:
+        raise ValueError("pass rel_eb or abs_eb")
+    prep = [_prepare(a, rel_eb, abs_eb, config) for a in arrs]
+    works = [p[2] for p in prep]
+    d, un, rec = _lorenzo_encode_group(works, [p[1] for p in prep], dtype,
+                                       device)
+    out = []
+    for f, (ab, eb_int, work, mean) in enumerate(prep):
+        arc = _lorenzo_archive(shape, dtype, ab, eb_int, mean, d[f], un[f],
+                               work[un[f]], config.zstd_level)
+        out.append((arc, rec[f]))
+    return out
+
+
 def decompress(arc: dict, device=None) -> np.ndarray:
     """Decode on ``device`` (``cuda`` unless given)."""
     if arc["kind"] != "szlike":
         raise ValueError("not an szlike archive")
-    if arc["predictor"] != "interp":
-        raise unported(f"predictor {arc['predictor']!r}", _LORENZO_ITEM)
     device = device_lib.resolve(device)
+    if arc["predictor"] == "lorenzo":
+        return _lorenzo_decode_group([arc], device)[0]
     level = arc["level"]
     _, phases = _interp_schedule(tuple(arc["shape"]), level)
     rec = _interp_decode(tuple(arc["pad_shape"]), arc["eb_int"], level, phases,
@@ -277,6 +384,32 @@ def decompress(arc: dict, device=None) -> np.ndarray:
                          entropy.decode_floats(arc["literals"]).ravel(), device)
     out = rec.cpu().numpy()[tuple(slice(0, d) for d in arc["shape"])]
     return out.astype(np.dtype(arc["dtype"]), copy=False)
+
+
+def decode_key(arc: dict) -> tuple:
+    """Archives agreeing here may share one stacked decode (the registry's
+    ``decode_key``).  Per-field bounds are not part of it: they ride along
+    as a vector, as on the encode side."""
+    return (arc["predictor"], tuple(arc["shape"]), arc["dtype"],
+            arc.get("level"), tuple(arc.get("pad_shape", ())))
+
+
+def decompress_batched(arcs: list, device=None) -> list:
+    """Decode a ``decode_key``-matched group; bit-identical to one
+    :func:`decompress` per archive.  A Lorenzo group is one stacked
+    ``lorenzo3d_inv`` launch; interp archives decode one at a time until
+    the batched engine brings their stacked walk."""
+    if not arcs:
+        return []
+    if any(a["kind"] != "szlike" for a in arcs):
+        raise ValueError("not szlike archives")
+    key = decode_key(arcs[0])
+    if any(decode_key(a) != key for a in arcs):
+        raise ValueError("decompress_batched needs decode_key-matched archives")
+    device = device_lib.resolve(device)
+    if arcs[0]["predictor"] == "lorenzo":
+        return _lorenzo_decode_group(arcs, device)
+    return [decompress(a, device) for a in arcs]
 
 
 def archive_nbytes(arc: dict) -> int:

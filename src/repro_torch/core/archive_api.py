@@ -67,8 +67,9 @@ class Archive(Mapping):
         """Decode one field: its entry plus the conventional payloads of
         its aux fields."""
         e = self.entry(name)
-        recs = {n: compressors.decompress(self.entry(n)["conv"], self.device)
-                for n in dict.fromkeys([name, *e["aux"]])}
+        recs = compressors.decompress_many(
+            {n: self.entry(n)["conv"] for n in dict.fromkeys([name, *e["aux"]])},
+            device=self.device)
         return neurlz.decode_field_entry(e, recs[name],
                                          [recs[a] for a in e["aux"]],
                                          self._arc["slice_axis"], self.device)

@@ -1,15 +1,20 @@
 """NeurLZ end to end (§3.1, Fig. 3), the serial engine.
 
-Compression, one field at a time:
-  1. conventional error-bounded compression (``szlike``), keeping the
-     encoder-side reconstruction ``X'``,
+Compression:
+  1. the conventional stage (:class:`~repro_torch.core.conv_stage.ConvStage`)
+     compresses every field with the configured compressor (``szlike``,
+     ``szlike-lorenzo`` or ``zfplike``), same-shape fields that share a
+     bound in one batched call, keeping the encoder-side reconstruction
+     ``X'``;
+then, one field at a time:
   2. online training of a skipping-DNN enhancer on the residual ``X − X'``
      (cross-field aux channels optional),
   3. enhancement and regulation in one pass (the ``fused_enhance`` kernel);
      strict mode stores the outlier coordinates,
   4. conventional payload + weights + outliers packed into one archive.
 
-Decode mirrors it: conventional decode → enhancer inference → the same
+Decode mirrors it: conventional decode (archives that share a decode key
+in one stacked call) → enhancer inference → the same
 ``fused_enhance`` arithmetic with ``orig := X'`` → the stored outliers
 patched back to ``X'``.  Encoder and decoder run one arithmetic on one
 device, so the decoder reproduces the encoder's final field bit for bit.
@@ -26,14 +31,17 @@ import torch
 from .. import compressors
 from .. import device as device_lib
 from ..compressors import outliers as outlier_codec
+from ..compressors import registry
 from ..roadmap import unported
 from . import archive as arc_io
+from . import bounds as bounds_lib
+from . import conv_stage as conv_stage_lib
 from . import metrics, online_trainer, regulation, skipping_dnn
 
 
 @dataclasses.dataclass(frozen=True)
 class NeurLZConfig:
-    compressor: str = "szlike"
+    compressor: str = "szlike"          # szlike | szlike-lorenzo | zfplike
     mode: str = "strict"                # strict | relaxed | unregulated
     epochs: int = 100
     batch: int = 10
@@ -46,6 +54,7 @@ class NeurLZConfig:
     weight_dtype: str = "float32"       # archive precision of the weights
     widths: tuple = (4, 4, 6, 6, 8)
     engine: str = "serial"
+    conv_batch: bool = True             # batched conventional stage
     telemetry: object | None = None
     faults: object | None = None
 
@@ -59,9 +68,7 @@ class NeurLZConfig:
             if item is None:
                 raise ValueError(f"unknown engine {self.engine!r}")
             raise unported(f"engine={self.engine!r}", item)
-        if self.compressor != "szlike":
-            raise unported(f"compressor={self.compressor!r}",
-                           "registry + conv_stage + szlike-lorenzo")
+        registry.get(self.compressor)   # an unknown name raises
         if self.telemetry is not None or self.faults is not None:
             raise unported("telemetry/faults", "obs/faults")
         if not self.learn_residual:
@@ -75,6 +82,14 @@ class NeurLZConfig:
     def train_config(self) -> online_trainer.TrainConfig:
         return online_trainer.TrainConfig(
             epochs=self.epochs, batch=self.batch, lr=self.lr, seed=self.seed)
+
+
+def field_config(config: NeurLZConfig, mode: str | None) -> NeurLZConfig:
+    """The config of one field under its own regulation mode (``None`` or
+    the session's mode: the session config unchanged)."""
+    if mode is None or mode == config.mode:
+        return config
+    return dataclasses.replace(config, mode=mode)
 
 
 def _aux_names(cfg: NeurLZConfig, name: str, fields) -> list[str]:
@@ -142,12 +157,15 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
                   abs_eb=None, config: NeurLZConfig = NeurLZConfig(),
                   collect_stats: bool = True, device=None,
                   init_params: Mapping | None = None,
-                  batch_schedules: Mapping | None = None) -> dict:
+                  batch_schedules: Mapping | None = None,
+                  bounds=None) -> dict:
     """Compress one snapshot with the serial engine on ``device`` (``cuda``
-    unless given); returns the archive dict.  ``init_params`` (field ->
-    parameter tree of numpy arrays) and ``batch_schedules`` (field ->
-    ``[epochs, steps, batch]`` indices) fix the enhancer's start and batch
-    order, e.g. to the JAX package's."""
+    unless given); returns the archive dict.  ``bounds`` optionally gives
+    per-field :class:`~repro_torch.core.bounds.ErrorBound` specs (the forms
+    of :func:`~repro_torch.core.bounds.resolve_bounds`).  ``init_params``
+    (field -> parameter tree of numpy arrays) and ``batch_schedules`` (field
+    -> ``[epochs, steps, batch]`` indices) fix the enhancer's start and
+    batch order, e.g. to the JAX package's."""
     config.check()
     device = device_lib.resolve(device)
     init_params = init_params or {}
@@ -156,11 +174,13 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
                           "pack_s")}
     t0 = time.perf_counter()
 
-    conv = {n: compressors.compress(x, rel_eb, abs_eb=abs_eb,
-                                    compressor=config.compressor,
-                                    device=device)
-            for n, x in fields.items()}
-    _sync(device)
+    resolved = (bounds_lib.resolve_bounds(list(fields), bounds, rel_eb, abs_eb,
+                                          default_mode=config.mode)
+                if bounds is not None else None)
+    stage = conv_stage_lib.ConvStage(config.compressor, rel_eb, abs_eb,
+                                     batch=config.conv_batch, bounds=resolved,
+                                     device=device)
+    conv = stage.run(fields)
     t["conv_s"] = time.perf_counter() - t0
 
     # A reconstruction stays resident until its last consumer (its own
@@ -178,10 +198,11 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
         x = np.asarray(x)
         conv_arc = conv_arcs[name]
         eb = conv_arc["abs_eb"]
-        aux_names = _aux_names(config, name, fields)
+        fcfg = field_config(config, resolved[name].mode if resolved else None)
+        aux_names = _aux_names(fcfg, name, fields)
         aux = [recs[a] for a in aux_names]
-        net_cfg = config.net_config(1 + len(aux))
-        tcfg = config.train_config()
+        net_cfg = fcfg.net_config(1 + len(aux))
+        tcfg = fcfg.train_config()
 
         ts = time.perf_counter()
         inputs, targets, stats = online_trainer.make_dataset(
@@ -207,12 +228,12 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
         t["predict_s"] += time.perf_counter() - ts
 
         ts = time.perf_counter()
-        entry = pack_entry(config, conv_arc, model.tree(), stats, aux_names,
+        entry = pack_entry(fcfg, conv_arc, model.tree(), stats, aux_names,
                            eb, net_cfg, history, collect_stats)
         t["pack_s"] += time.perf_counter() - ts
 
         ts = time.perf_counter()
-        _, mask = enhance_and_mask(x, recs[name], resid, eb, config)
+        _, mask = enhance_and_mask(x, recs[name], resid, eb, fcfg)
         mask = None if mask is None else mask.cpu().numpy()
         t["enhance_s"] += time.perf_counter() - ts
 
@@ -226,7 +247,8 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
             if rec_refs[m] <= 0:
                 recs.pop(m, None)
 
-    timing = {"total_s": time.perf_counter() - t0, **t, "device": str(device)}
+    timing = {"total_s": time.perf_counter() - t0, **t,
+              "conv_stage": stage.stats.as_dict(), "device": str(device)}
     return assemble_archive(fields, out_fields, config, timing)
 
 
@@ -282,8 +304,8 @@ def decompress(arc, device=None) -> dict[str, np.ndarray]:
     (``cuda`` unless given)."""
     device = device_lib.resolve(device)
     slice_axis = arc["slice_axis"]
-    recs = {name: compressors.decompress(e["conv"], device=device)
-            for name, e in arc["fields"].items()}
+    recs = compressors.decompress_many(
+        {name: e["conv"] for name, e in arc["fields"].items()}, device=device)
     return {name: decode_field_entry(e, recs[name], [recs[a] for a in e["aux"]],
                                      slice_axis, device)
             for name, e in arc["fields"].items()}

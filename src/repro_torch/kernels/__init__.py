@@ -1,19 +1,24 @@
-"""Hand-written CUDA kernels for Hopper, one module each, beside their plain
-PyTorch versions.  The device of the tensors picks the route: CUDA tensors
-launch the kernel, CPU tensors take the plain version.
+"""Hand-written CUDA kernels for Hopper, beside their plain PyTorch versions.
+The device of the tensors picks the route: CUDA tensors launch the kernel,
+CPU tensors take the plain version.
 
-Each wrapper counts its kernel launches in a module-level ``launches``
-integer, so a run can show that its main path went through the kernels.
+Each wrapper counts the calls that launched its kernel in a module-level
+integer, so a run can show that its path went through the kernels.
+``KERNELS`` maps each kernel to its module and the name of its counter
+there (``lorenzo3d`` holds two kernels).
 """
-from . import conv2d3x3, fused_enhance
+from . import conv2d3x3, fused_enhance, lorenzo3d
 
-KERNELS = {"conv2d3x3": conv2d3x3, "fused_enhance": fused_enhance}
+KERNELS = {"conv2d3x3": (conv2d3x3, "launches"),
+           "fused_enhance": (fused_enhance, "launches"),
+           "lorenzo3d_fwd": (lorenzo3d, "fwd_launches"),
+           "lorenzo3d_inv": (lorenzo3d, "inv_launches")}
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

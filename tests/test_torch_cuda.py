@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import conv2d3x3 as conv
 from repro_torch.kernels import fused_enhance as fe
+from repro_torch.kernels import lorenzo3d
 
 # (N, H, W, Cin, Cout, stride): odd sizes, stride 2 on odd and even sizes
 # (XLA's SAME pads lo=0, hi=1 there), Cout=1, and the enhancer's conv_in and
@@ -88,3 +89,95 @@ def test_fused_enhance_kernel_byte_identical(cuda_device, dtype, strict):
         assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
     if dtype == torch.float32:
         assert got[0][0, 0, 0].item() == 1.0 + 2.0 ** -23
+
+
+# Stacked Lorenzo groups: odd sizes, several tiles with ragged edges, 2-D
+# fields as [F, H, W], F=1 and F=3, and rows wider than one scan block.
+LORENZO_SHAPES = [(1, 5, 7, 3), (3, 11, 13), (3, 9, 37, 45), (1, 3, 33, 65),
+                  (2, 4, 9, 1100)]
+
+
+def _lorenzo_group(shape, seed):
+    """A smooth group with the reference's probe values: a NaN, an
+    infinity, a CODE_CAP overflow, 2**25 + 0.5 (which a float32 cast moves
+    past the bound) and points on the lattice's half steps."""
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.standard_normal(shape), axis=-1)
+    eb = np.array([1e-3, 2e-2, 0.3][:shape[0]] + [5e-3] * (shape[0] - 3))
+    flat = x.reshape(shape[0], -1)
+    n = flat.shape[1]
+    flat[0, 0] = np.nan
+    flat[0, n // 2] = 3.0e9
+    flat[-1, n // 3] = np.inf
+    flat[-1, n - 1] = float(np.float32(2 ** 25)) + 0.5
+    flat[-1, n // 4] = 2.0 * eb[-1] * 2.5
+    return x, eb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", LORENZO_SHAPES)
+def test_lorenzo_kernels_byte_identical(cuda_device, shape, out_dtype):
+    x, eb = _lorenzo_group(shape, len(shape) + shape[-1])
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = (lorenzo3d.fwd_launches, lorenzo3d.inv_launches)
+    got = lorenzo3d.lorenzo3d_fwd(xt, eb, out_dtype)
+    want = lorenzo3d.lorenzo_encode_plain(xt, torch.from_numpy(eb).to(cuda_device),
+                                          out_dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+    assert got[1].any()
+    dec = lorenzo3d.lorenzo3d_inv(got[0], eb)
+    plain = lorenzo3d.lorenzo_decode_plain(got[0],
+                                           torch.from_numpy(eb).to(cuda_device))
+    torch.cuda.synchronize()
+    assert (lorenzo3d.fwd_launches, lorenzo3d.inv_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dec.cpu().numpy().tobytes() == plain.cpu().numpy().tobytes()
+    keep = ~got[1]
+    assert torch.equal(dec[keep], got[2][keep])
+
+
+@pytest.mark.cuda
+def test_lorenzo_inv_wide_rows(cuda_device):
+    """Rows wider than 48 KB of shared column sums (the opt-in path)."""
+    rng = np.random.default_rng(11)
+    d = torch.from_numpy(rng.integers(-9, 9, (1, 2, 3, 13000), dtype=np.int32))
+    d = d.to(cuda_device)
+    got = lorenzo3d.lorenzo3d_inv(d, [1e-2])
+    want = lorenzo3d.lorenzo_decode_plain(d, torch.tensor([1e-2], dtype=torch.float64,
+                                                          device=cuda_device))
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_lorenzo_session_round_trip(cuda_device):
+    """``szlike-lorenzo`` end to end on the card: one fused group, both
+    kernels launched, the strict bound held, and decode equal to the
+    encoder's final field bit for bit."""
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.compressors import szlike
+    from repro_torch.core import neurlz, online_trainer
+    from repro_torch.data import fields as fields_lib
+
+    fields = fields_lib.make_fields("hurricane", (6, 40, 36), seed=2)
+    kernels.reset_launch_counts()
+    sess = repro_torch.NeurLZ(compressor="szlike-lorenzo", epochs=2,
+                              device=cuda_device)
+    arc = sess.compress(fields, rel_eb=1e-3)
+    dec = arc.decode_all()
+    counts = kernels.launch_counts()
+    assert counts["lorenzo3d_fwd"] == 1 and counts["lorenzo3d_inv"] == 1
+    assert counts["conv2d3x3"] > 0 and counts["fused_enhance"] == 6
+    assert arc["timing"]["conv_stage"]["batched_fields"] == 3
+    for name, x in fields.items():
+        e = arc["fields"][name]
+        assert np.abs(dec[name].astype(np.float64) - x).max() <= e["abs_eb"]
+        rec = szlike.decompress(e["conv"], device=cuda_device)
+        model = neurlz.decode_entry_net(e, cuda_device)
+        inputs, _, _ = online_trainer.make_dataset(rec, x, e["abs_eb"])
+        resid = online_trainer.predict_residual(model, inputs)
+        final, _ = neurlz.enhance_and_mask(x, rec, resid, e["abs_eb"], sess.config)
+        assert final.cpu().numpy().tobytes() == dec[name].tobytes()

@@ -1,6 +1,9 @@
 """The port's main path as a whole against the JAX package's serial engine:
 compress a small Hurricane snapshot with the reference's initial weights and
-batch order carried across, then decode.
+batch order carried across, then decode; the same for the ``szlike-lorenzo``
+path, whose conventional stage is one batched group.  Both reference runs
+sit in this module so that one process compiles the reference's trainer
+once for both.
 
 * conventional payloads byte-identical;
 * strict archives hold the 1× bound, relaxed ones 2×;
@@ -22,7 +25,8 @@ from repro.core import skipping_dnn as ref_dnn
 from repro.data import fields as ref_fields
 from repro_torch import compressors
 from repro_torch.compressors import szlike as port_sz
-from repro_torch.core import metrics, neurlz, online_trainer
+from repro_torch.compressors import zfplike as port_zfp
+from repro_torch.core import conv_stage, metrics, neurlz, online_trainer
 from repro_torch.core import skipping_dnn as port_dnn
 
 # The suite runs in parallel workers on a few cores: one intra-op thread
@@ -108,6 +112,36 @@ def test_main_path_matches_reference(tmp_path):
         assert _max_err(port_on_ref[name], ref_dec[name]) <= 1e-3 * eb
 
 
+def test_lorenzo_path_matches_reference():
+    ref_arc = repro.NeurLZ(engine="serial", lowering="eager",
+                           compressor="szlike-lorenzo", epochs=EPOCHS,
+                           seed=SEED).compress(FIELDS, rel_eb=REL_EB)
+    init, sched = _carried_across(FIELDS)
+    arc = repro_torch.NeurLZ(compressor="szlike-lorenzo", epochs=EPOCHS,
+                             seed=SEED, device="cpu").compress(
+        FIELDS, rel_eb=REL_EB, init_params=init, batch_schedules=sched)
+    stats = arc["timing"]["conv_stage"]
+    assert (stats["groups"], stats["calls"], stats["batched_fields"]) == (1, 1, 3)
+    dec, ref_dec = arc.decode_all(), ref_arc.decode_all()
+    for name, x in FIELDS.items():
+        e, re_ = arc["fields"][name], ref_arc["fields"][name]
+        assert e["conv"]["predictor"] == "lorenzo"
+        assert repro.core.archive.dumps(e["conv"]) == repro.core.archive.dumps(
+            re_["conv"])
+        assert e["abs_eb"] == re_["abs_eb"] and e["stats"] == re_["stats"]
+        assert _max_err(dec[name], x) <= e["abs_eb"]
+        # Same weights and batches, float32 sums in another order: the
+        # tolerances of the main path (losses to 1e-4, 0.05 dB, 2% of the
+        # bit rate).
+        np.testing.assert_allclose(e["loss_history"], re_["loss_history"],
+                                   rtol=1e-4)
+        assert abs(metrics.psnr(x, dec[name])
+                   - metrics.psnr(x, ref_dec[name])) <= 0.05
+        assert arc.bitrate(name)["bitrate"] == pytest.approx(
+            ref_arc.bitrate(name)["bitrate"], rel=0.02)
+        assert np.array_equal(arc.decode(name), dec[name])
+
+
 @pytest.mark.parametrize("mode,factor", [("relaxed", 2.0), ("unregulated", None)])
 def test_other_modes_decode_within_their_bound(mode, factor):
     sub = {k: FIELDS[k] for k in ("cloud", "w")}
@@ -126,7 +160,7 @@ def test_other_modes_decode_within_their_bound(mode, factor):
 @pytest.mark.parametrize("kwargs,match", [
     ({"engine": "batched"}, "batched engine"),
     ({"engine": "streaming"}, "streaming"),
-    ({"compressor": "zfplike"}, "szlike-lorenzo"),
+    ({"telemetry": object()}, "obs/faults"),
     ({"group_size": 4}, "batched engine"),
     ({"learn_residual": False}, "the rest"),
 ])
@@ -166,6 +200,12 @@ DEFAULT_CUDA_CALLS = {
     "szlike.compress": lambda x, arc: port_sz.compress(x, REL_EB),
     "szlike.decompress":
         lambda x, arc: port_sz.decompress(arc["fields"]["w"]["conv"]),
+    "szlike.compress_batched": lambda x, arc: port_sz.compress_batched(
+        [x, x], REL_EB, config=port_sz.SZLikeConfig(predictor="lorenzo")),
+    "zfplike.compress": lambda x, arc: port_zfp.compress(x, REL_EB),
+    "compressors.decompress_many": lambda x, arc: compressors.decompress_many(
+        {"w": arc["fields"]["w"]["conv"]}),
+    "ConvStage": lambda x, arc: conv_stage.ConvStage("szlike-lorenzo", REL_EB),
     "neurlz.compress_impl": lambda x, arc: neurlz.compress_impl(
         {"w": x}, REL_EB, config=neurlz.NeurLZConfig(epochs=1)),
     "neurlz.decompress": lambda x, arc: neurlz.decompress(arc),

@@ -121,7 +121,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     port_conv.conv2d3x3(x, wt, b)
     z = torch.zeros(5, dtype=torch.float32)
     port_fe.fused_enhance(z, z.double(), z.double(), 0.1)
-    assert kernels.launch_counts() == {"conv2d3x3": 0, "fused_enhance": 0}
+    assert kernels.launch_counts() == {"conv2d3x3": 0, "fused_enhance": 0,
+                                       "lorenzo3d_fwd": 0, "lorenzo3d_inv": 0}
     with pytest.raises(ValueError, match="output channels"):
         port_conv.conv2d3x3(x, torch.zeros(3, 3, 2, 9), torch.zeros(9))
     with pytest.raises(TypeError, match="float32"):

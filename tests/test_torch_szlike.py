@@ -55,9 +55,3 @@ def test_payloads_and_rec_byte_identical(dataset, rel_eb):
     assert port_dec.tobytes() == rec.tobytes()
     assert port_sz.decompress(ref_arc, device="cpu").tobytes() == ref_rec.tobytes()
 
-
-def test_lorenzo_predictor_names_its_roadmap_item():
-    x = np.zeros((5, 6, 7), np.float32)
-    with pytest.raises(NotImplementedError, match="szlike-lorenzo"):
-        port_sz.compress(x, 1e-3, config=port_sz.SZLikeConfig(predictor="lorenzo"),
-                         device="cpu")
