@@ -11,7 +11,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 3. kernel parity and timing on the card, each kernel against its plain
    PyTorch version: ``conv2d3x3`` at every conv shape of the enhancer's
    forward (N=10 training batches and N=64 inference chunks of 512×512
-   slices) plus odd sizes, stride 2 and Cout=1; ``fused_enhance`` byte for
+   slices) plus odd sizes, stride 2 and Cout=1; its backward
+   ``conv2d3x3_bwd`` (dgrad, wgrad) at the six training shapes and the odd
+   and even test shapes, twice on the same inputs (byte-identical);
+   ``fused_enhance`` byte for
    byte in float32 and float64, strict and relaxed, on the double-rounding
    canary and on a full field; ``lorenzo3d_fwd`` and ``lorenzo3d_inv`` byte
    for byte on the stacked float64 group of the snapshot's three fields
@@ -21,8 +24,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    .compress`` at rel_eb 1e-3 in strict mode, ``save``, ``Archive.open``,
    ``decode_all``; the 1× bound is checked on every field, and for one field
    the engine's encoder helpers are run again from the archived weights and
-   the decode must equal the encoder's final field bit for bit; then a
-   torch.profiler trace of ten training steps (device-busy share);
+   the decode must equal the encoder's final field bit for bit; then
+   torch.profiler traces of ten training steps, with the plain-PyTorch
+   conv backward and with the kernels, in turns (plain, kernel, kernel,
+   plain): step time, kernels per step, device-busy share;
 5. the Lorenzo path on the same snapshot: ``NeurLZ(compressor=
    "szlike-lorenzo")``, its conventional stage one batched group of three
    fields, the same checks on every field;
@@ -66,7 +71,10 @@ EXTRA_CONV = [   # (name, N, H, W, Cin, Cout, stride, relu)
     ("even16x12_s2", 2, 16, 12, 6, 8, 2, False),
     ("cout1_17x13", 2, 17, 13, 8, 1, 1, False)]
 CONV_TOL = 1e-5     # |kernel - plain| <= CONV_TOL * max(1, max|plain|):
-#   float32 sums of <= 72 terms (9*Cin) in another order
+#   float32 sums of <= 72 terms (9*Cin, or 9*Cout for dgrad) in another order
+WGRAD_TOL = 1e-5    # |kernel - plain| <= WGRAD_TOL * sum|x * g'| + 1e-6 for dw
+#   and db: float32 sums of up to N*Ho*Wo = 2.6M terms, in blocks, in another
+#   order than cuBLAS's; a wrong or missing tap moves a sum by a large share
 
 
 def nvidia_smi_line() -> str:
@@ -126,7 +134,8 @@ def device_events(prof) -> list:
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
-              per_call: int = 1, name: str | None = None) -> float:
+              per_call: int = 1, name: str | None = None,
+              split: dict | None = None) -> float:
     """Mean device time of one call of ``fn``: the summed durations of the
     device activities (kernels, copies, fills) of ``iters`` calls in a
     torch.profiler trace, over ``iters``.  Host time between launches is not
@@ -134,7 +143,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
     ``per_call`` kernels per call whose name holds that string; without,
     a positive multiple of ``iters`` device activities.  An incomplete
     trace is taken again (noted in ``RETRACED``); after TRACE_TRIES
-    incomplete traces it raises."""
+    incomplete traces it raises.  ``split`` maps labels to name parts; it
+    is filled in place with each label's device time per call."""
     for _ in range(warmup):
         fn()
 
@@ -152,6 +162,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
                 RETRACED[name or kernel or "fn"] = attempt
                 print(f"device_ms: {name or kernel}: {attempt} traces "
                       f"(device activities seen: {counts})")
+            for label, part in (split or {}).items():
+                split[label] = sum(e.time_range.elapsed_us() for e in events
+                                   if part in e.name) / 1e3 / iters
             return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
     raise AssertionError(
         f"device_ms: {name or kernel}: {TRACE_TRIES} incomplete traces of "
@@ -205,7 +218,7 @@ def conv_phase(dev, report: dict) -> dict:
             def run():
                 return conv.conv2d3x3(x, wt, b, stride=s, relu=relu)
             row.update(
-                ms=device_ms(run, kernel="conv3x3_kernel"),
+                ms=device_ms(run, kernel="conv3x3_fwd_kernel"),
                 wall_ms=wall_ms(run),
                 plain_ms=device_ms(lambda: conv.conv2d3x3_plain(
                     x, wt, b, stride=s, relu=relu), iters=5,
@@ -222,9 +235,117 @@ def conv_phase(dev, report: dict) -> dict:
         rows.append(row)
         print("conv2d3x3", json.dumps(row))
     report["conv2d3x3_cases"] = rows
+    # The device time of the smallest kernel: PyTorch's fill of one float.
+    one = torch.empty(1, device=dev)
+    summary["launch_floor_ms"] = device_ms(one.zero_,
+                                           name="launch floor (fill of 1 float)")
     summary["bound_by"] = ("bytes" if summary.pop("bytes_ms") >= summary.pop("ops_ms")
                            else "operations")
     summary["timed_at"] = "sum of the six conv launches of one N=10 training forward"
+    return summary
+
+
+def conv_bwd_phase(dev, report: dict) -> dict:
+    """``conv2d3x3_bwd`` against its plain version at the six training
+    shapes (N=10, 512²) and the odd and even test shapes, twice on the same
+    inputs (byte-identical), then timed at the training shapes as the main
+    path calls it (conv_in without dgrad) beside the plain version and one
+    ``aten.convolution_backward`` call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d3x3 as conv
+
+    gen = torch.Generator().manual_seed(4)
+    cases = [(f"{name}_N10", 10, h, h, cin, cout, s, relu, True)
+             for name, h, cin, cout, s, relu in LAYERS_512]
+    cases += [(*c, False) for c in EXTRA_CONV]
+    rows, summary = [], {"ms": 0.0, "wall_ms": 0.0, "plain_ms": 0.0,
+                         "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+    nbytes_sum = ops_sum = 0.0
+    for name, n, h, w, cin, cout, s, relu, timed in cases:
+        x = torch.randn((n, h, w, cin), generator=gen).to(dev)
+        wt = (torch.randn((3, 3, cin, cout), generator=gen) * 0.3).to(dev)
+        b = (torch.randn((cout,), generator=gen) * 0.1).to(dev)
+        y = conv.conv2d3x3(x, wt, b, stride=s, relu=relu)
+        g = torch.randn(tuple(y.shape), generator=gen).to(dev)
+        got = conv.conv2d3x3_bwd(g, y, x, wt, stride=s, relu=relu)
+        again = conv.conv2d3x3_bwd(g, y, x, wt, stride=s, relu=relu)
+        if not all(_bits_equal(a, e) for a, e in zip(got, again)):
+            raise AssertionError(f"conv2d3x3_bwd {name}: two calls differ")
+        want_dx = conv.conv2d3x3_dgrad_plain(g, y, wt, x.shape, stride=s, relu=relu)
+        want_dw, want_db = conv.conv2d3x3_wgrad_plain(g, y, x, stride=s, relu=relu)
+        gm = conv.relu_mask(g, y, relu)
+        terms_dw, terms_db = conv.conv2d3x3_wgrad_plain(gm.abs(), y, x.abs(),
+                                                        stride=s, relu=False)
+        torch.cuda.synchronize()
+        errs = {"dx": float((got[0] - want_dx).abs().max()),
+                "dw": float((got[1] - want_dw).abs().max()),
+                "db": float((got[2] - want_db).abs().max())}
+        dx_scale = max(1.0, float(want_dx.abs().max()))
+        if not errs["dx"] <= CONV_TOL * dx_scale:
+            raise AssertionError(f"conv2d3x3_bwd {name}: dx max |kernel - plain| "
+                                 f"{errs['dx']} > {CONV_TOL} * {dx_scale}")
+        for k, a, e, t in (("dw", got[1], want_dw, terms_dw),
+                           ("db", got[2], want_db, terms_db)):
+            if not bool(((a - e).abs() <= WGRAD_TOL * t + 1e-6).all()):
+                raise AssertionError(f"conv2d3x3_bwd {name}: {k} beyond "
+                                     f"{WGRAD_TOL} * sum|x g'| ({errs[k]})")
+        row = {"case": name, "x": [n, h, w, cin], "cout": cout, "stride": s,
+               "relu": relu, "max_abs_err": errs, "identical_twice": True}
+        if timed:
+            need_dx = not name.startswith("conv_in")   # as the main path calls it
+            ho, ylo, yhi = conv.same_pads(h, s)
+            wo, xlo, xhi = conv.same_pads(w, s)
+            # Bytes: x, w, g (and y for the ReLU mask) read once; dx (where
+            # the path needs it), dw and db written once.  Operations: the
+            # multiply-adds of dgrad and wgrad and the adds of db.
+            m = n * ho * wo
+            nbytes = 4 * (x.numel() * (2 if need_dx else 1) + 2 * wt.numel()
+                          + g.numel() * (2 if relu else 1) + cout)
+            ops = 2 * 9 * cin * cout * m * (2 if need_dx else 1) + m * cout
+            b_ms, by = bound(nbytes, ops, FP32_FLOPS)
+            # One library call over the same function: aten's convolution
+            # backward (cuDNN) on the NHWC data as channels_last views, the
+            # input pre-padded with XLA's SAME pads and g' masked outside the
+            # timed call (its dx is that of the padded input), TF32 off.
+            xl = F.pad(x, (0, 0, xlo, xhi, ylo, yhi)).permute(0, 3, 1, 2)
+            wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            gl = gm.permute(0, 3, 1, 2)
+
+            def run():
+                return conv.conv2d3x3_bwd(g, y, x, wt, stride=s, relu=relu,
+                                          need_dx=need_dx)
+
+            def plain():
+                dx = (conv.conv2d3x3_dgrad_plain(g, y, wt, x.shape, stride=s,
+                                                 relu=relu) if need_dx else None)
+                return dx, conv.conv2d3x3_wgrad_plain(g, y, x, stride=s, relu=relu)
+
+            def library():
+                return torch.ops.aten.convolution_backward(
+                    gl, xl, wl, [cout], [s, s], [0, 0], [1, 1], False, [0, 0],
+                    1, [need_dx, True, True])
+            split = {"dgrad": "_dgrad_", "wgrad": "_wgrad_", "wsum": "_wsum_"}
+            row.update(
+                need_dx=need_dx,
+                ms=device_ms(run, kernel="conv3x3_bwd_", per_call=3 if need_dx else 2,
+                             name=f"conv2d3x3_bwd {name}", split=split),
+                ms_by_kernel=split,
+                wall_ms=wall_ms(run),
+                plain_ms=device_ms(plain, iters=5, name=f"conv2d3x3_bwd plain {name}"),
+                library_ms=device_ms(library, name=f"convolution_backward {name}"),
+                bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=ops)
+            for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms"):
+                summary[k] += row[k]
+            nbytes_sum += nbytes
+            ops_sum += ops
+        summary["max_abs_err"] = max(summary["max_abs_err"], *errs.values())
+        rows.append(row)
+        print("conv2d3x3_bwd", json.dumps(row))
+    report["conv2d3x3_bwd_cases"] = rows
+    summary["bound_by"] = bound(nbytes_sum, ops_sum, FP32_FLOPS)[1]
+    summary["timed_at"] = ("sum of the six conv backward calls of one N=10 "
+                           "training step (conv_in without dgrad)")
     return summary
 
 
@@ -413,9 +534,11 @@ def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
     """Trace ``steps`` training steps (batch 10, full-size slices) with
     torch.profiler: wall time per step, device-busy time per step (the sum
     of the CUDA kernels' durations; one stream, so they do not overlap),
-    kernels per step and the kernels that take the most time."""
+    kernels per step and the kernels that take the most time; then time
+    ``steps`` more steps without the profiler (``step_ms_untraced``)."""
     import torch
     from repro_torch.core import online_trainer
+    from repro_torch.kernels import conv2d3x3 as conv
     from repro_torch.optim import AdamW
 
     dev = next(model.parameters()).device
@@ -432,6 +555,7 @@ def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
     for i in range(3):
         step(i)
     wall = []
+    bwd_before = conv.bwd_launches
 
     def steps_run():
         t0 = time.perf_counter()
@@ -442,17 +566,81 @@ def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
     kernels = device_events(traced(steps_run))
     if not kernels:
         raise AssertionError("the training-step trace held no device activity")
-    wall = wall[0]
+    bwd_per_step = (conv.bwd_launches - bwd_before) / steps
+    steps_run()
+    traced_wall, untraced_wall = wall
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": steps, "step_ms": wall * 1e3 / steps,
+    return {"steps": steps, "step_ms": traced_wall * 1e3 / steps,
+            "step_ms_untraced": untraced_wall * 1e3 / steps,
             "device_busy_ms_per_step": busy_ms / steps,
-            "device_busy_share": busy_ms / (wall * 1e3),
+            "device_busy_share": busy_ms / (traced_wall * 1e3),
             "kernels_per_step": len(kernels) / steps,
+            "conv2d3x3_bwd_launches_per_step": bwd_per_step,
             "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps] for k, v in top]}
+
+
+def plain_backward_conv3x3(wgrad=None):
+    """The skipping DNN's conv with the kernel forward and the plain-PyTorch
+    backward: the plain side of the training-step A/B.  Only this script
+    (and ``scripts/backward_quality_ab.py``, which passes another
+    ``wgrad``) builds it; nothing in ``repro_torch`` reaches the plain
+    backward with CUDA tensors."""
+    import torch
+    from repro_torch.kernels import conv2d3x3 as conv
+    wgrad = wgrad or conv.conv2d3x3_wgrad_plain
+
+    class PlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, b, stride, relu):
+            y = conv.conv2d3x3(x, w, b, stride=stride, relu=relu)
+            ctx.save_for_backward(x, w, y)
+            ctx.stride, ctx.relu = stride, relu
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w, y = ctx.saved_tensors
+            s, relu = ctx.stride, ctx.relu
+            dx = (conv.conv2d3x3_dgrad_plain(g, y, w, x.shape, stride=s, relu=relu)
+                  if ctx.needs_input_grad[0] else None)
+            dw, db = wgrad(g, y, x, stride=s, relu=relu)
+            return dx, dw, db, None, None
+
+    def conv3x3(x, w, b, *, stride: int = 1, relu: bool = True):
+        return PlainBackward.apply(x.contiguous(), w.contiguous(),
+                                   b.contiguous(), stride, relu)
+    return conv3x3
+
+
+def train_step_ab(model, inputs, targets) -> dict:
+    """Ten training steps traced with the plain conv backward and with the
+    kernels, in turns (plain, kernel, kernel, plain), on one model."""
+    from repro_torch.core import skipping_dnn
+
+    kernel_conv, plain_conv = skipping_dnn.conv3x3, plain_backward_conv3x3()
+    runs = []
+    try:
+        for side in ("plain", "kernel", "kernel", "plain"):
+            skipping_dnn.conv3x3 = plain_conv if side == "plain" else kernel_conv
+            runs.append({"backward": side,
+                         **profile_train_steps(model, inputs, targets)})
+    finally:
+        skipping_dnn.conv3x3 = kernel_conv
+    out = {"order": [r["backward"] for r in runs], "runs": runs}
+    for side, bwd in (("plain", 0), ("kernel", len(LAYERS_512))):
+        mine = [r for r in runs if r["backward"] == side]
+        seen = [r["conv2d3x3_bwd_launches_per_step"] for r in mine]
+        if any(v != bwd for v in seen):
+            raise AssertionError(f"{side} backward: conv2d3x3_bwd launches per "
+                                 f"step {seen}, want {bwd}")
+        out[side] = {k: sum(r[k] for r in mine) / len(mine)
+                     for k in ("step_ms", "step_ms_untraced", "kernels_per_step",
+                               "device_busy_ms_per_step", "device_busy_share")}
+    return out
 
 
 def profile_conv_stage(x, dev) -> dict:
@@ -539,7 +727,7 @@ def main_path(dev, fields, epochs: int, report: dict) -> dict:
     if int(mask.sum()) != e["outliers"]["count"]:
         raise AssertionError(f"{name}: outlier mask differs from the archive's")
 
-    trace = profile_train_steps(model, inputs, targets)
+    trace = train_step_ab(model, inputs, targets)
     print("train_step_trace", json.dumps(trace))
     conv_profile = profile_conv_stage(x, dev)
     print("conv_stage_profile", json.dumps(conv_profile))
@@ -701,6 +889,7 @@ def main() -> int:
           f"{time.perf_counter() - t:.1f} s to generate")
 
     summaries = {"conv2d3x3": conv_phase(dev, report),
+                 "conv2d3x3_bwd": conv_bwd_phase(dev, report),
                  "fused_enhance": enhance_phase(dev, shape, report),
                  **lorenzo_phase(dev, fields, report)}
     if args.epochs < 100:
@@ -710,15 +899,20 @@ def main() -> int:
     # of a path must have launched in it.
     by_path = {"main": main_path(dev, fields, args.epochs, report),
                "lorenzo": lorenzo_path(dev, fields, args.epochs, report)}
-    path_kernels = {"main": ("conv2d3x3", "fused_enhance"),
+    path_kernels = {"main": ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance"),
                     "lorenzo": tuple(kernels.KERNELS)}
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")
     zfplike_round_trip(dev, fields["w"], report)
 
+    # The backward replaces no TPU kernel of its own: it is the gradient of
+    # conv2d3x3's function, which the JAX package takes by XLA's autodiff of
+    # skipping_dnn._conv_taps (src/repro/core/skipping_dnn.py:128).
     meta = {"conv2d3x3": ("src/repro_torch/csrc/conv2d3x3.cu",
                           "src/repro/kernels/conv2d3x3.py:73"),
+            "conv2d3x3_bwd": ("src/repro_torch/csrc/conv2d3x3_bwd.cu",
+                              "src/repro/kernels/conv2d3x3.py:73"),
             "fused_enhance": ("src/repro_torch/csrc/fused_enhance.cu",
                               "src/repro/kernels/fused_enhance.py:59"),
             "lorenzo3d_fwd": ("src/repro_torch/csrc/lorenzo3d.cu",

@@ -1,19 +1,23 @@
-"""3×3 conv + bias (+ ReLU) over NHWC float32: the ``csrc/conv2d3x3.cu``
-kernel, its plain PyTorch version, and the autograd function around both.
+"""3×3 conv + bias (+ ReLU) over NHWC float32, forward and backward: the
+``csrc/conv2d3x3.cu`` and ``csrc/conv2d3x3_bwd.cu`` kernels, their plain
+PyTorch versions, and the autograd function around both.
 
-Replaces the Pallas TPU kernel ``repro/kernels/conv2d3x3.py::conv2d3x3``.
-The device of the tensors decides the route: a CUDA tensor launches the
-hand-written kernel (or raises), a CPU tensor takes :func:`conv2d3x3_plain`.
-Nothing probes and nothing falls back.
+Replaces the Pallas TPU kernel ``repro/kernels/conv2d3x3.py::conv2d3x3``;
+the JAX package takes its gradient by XLA's autodiff of the same nine-tap
+sum (``repro/core/skipping_dnn.py::_conv_taps``).  The device of the
+tensors decides the route: a CUDA tensor launches the hand-written kernels
+(or raises), a CPU tensor takes :func:`conv2d3x3_plain`,
+:func:`conv2d3x3_dgrad_plain` and :func:`conv2d3x3_wgrad_plain`.  Nothing
+probes and nothing falls back.
 
 Layouts are the JAX package's: ``x`` is ``(N, H, W, Cin)``, ``w`` is
 ``(3, 3, Cin, Cout)`` (HWIO), ``b`` is ``(Cout,)``.  SAME padding uses XLA's
 arithmetic (``lo = total // 2``): at stride 2 on an even size the padding is
 ``lo=0, hi=1``, which is not ``torch.nn.functional.conv2d(padding=1)``.
 
-The gradient is plain PyTorch: the nine-tap formulation transposed (dgrad
-scatters ``g @ w[dy, dx].T`` back onto the padded input, wgrad contracts each
-shifted window with ``g``), with the ReLU mask read from the saved output.
+The backward reads the forward's saved output ``y`` for the ReLU mask
+(``g' = g`` where ``y > 0``, else 0).  On CUDA one C call launches dgrad
+(skipped when the input needs no gradient) and the two passes of wgrad.
 """
 from __future__ import annotations
 
@@ -26,11 +30,17 @@ from . import _build
 
 MAX_CIN = 16
 MAX_COUT = 8
+# Rows of wgrad's per-block partial sums: its first pass never runs more
+# blocks (kWgradRows in csrc/conv2d3x3_bwd.cu).
+WGRAD_ROWS = 264
 
-# Kernel launches made by :func:`conv2d3x3` (CUDA route only).
+# Calls that launched their kernels (CUDA route only): forward calls, and
+# backward calls (one C call each: dgrad, then wgrad's two passes).
 launches = 0
+bwd_launches = 0
 
 _lib = None
+_bwd_lib = None
 
 
 def same_pads(size: int, stride: int) -> tuple[int, int, int]:
@@ -41,49 +51,105 @@ def same_pads(size: int, stride: int) -> tuple[int, int, int]:
     return out, lo, total - lo
 
 
-def _taps(x: torch.Tensor, stride: int):
-    """Zero-padded input and, in tap order ``(dy, dx)``, the indexer of each
-    shifted strided window — the formulation of the reference's
+def _windows(ho: int, wo: int, stride: int):
+    """In tap order ``(dy, dx)``, the indexer of each shifted strided window
+    of the padded input — the formulation of the reference's
     ``_conv_taps``."""
-    _, h, wd, _ = x.shape
-    ho, ylo, yhi = same_pads(h, stride)
-    wo, xlo, xhi = same_pads(wd, stride)
-    xp = F.pad(x, (0, 0, xlo, xhi, ylo, yhi))
-    taps = [((dy, dx), (slice(None),
+    return [((dy, dx), (slice(None),
                         slice(dy, dy + (ho - 1) * stride + 1, stride),
                         slice(dx, dx + (wo - 1) * stride + 1, stride)))
             for dy in range(3) for dx in range(3)]
-    return xp, taps, (ylo, xlo)
+
+
+def _pad(x: torch.Tensor, stride: int) -> torch.Tensor:
+    _, h, wd, _ = x.shape
+    _, ylo, yhi = same_pads(h, stride)
+    _, xlo, xhi = same_pads(wd, stride)
+    return F.pad(x, (0, 0, xlo, xhi, ylo, yhi))
 
 
 def conv2d3x3_plain(x, w, b, *, stride: int = 1, relu: bool = True):
     """Plain PyTorch version: nine shifted GEMMs accumulated in tap order."""
-    xp, taps, _ = _taps(x, stride)
+    xp = _pad(x, stride)
+    ho, wo = same_pads(x.shape[1], stride)[0], same_pads(x.shape[2], stride)[0]
     acc = None
-    for (dy, dx), win in taps:
+    for (dy, dx), win in _windows(ho, wo, stride):
         t = torch.matmul(xp[win], w[dy, dx])
         acc = t if acc is None else acc + t
     y = acc + b
     return torch.relu(y) if relu else y
 
 
+def relu_mask(g, y, relu: bool):
+    """``g'``: the output gradient through the fused ReLU (``g`` where the
+    saved output ``y`` is positive, else 0); ``g`` itself without ReLU."""
+    if not relu:
+        return g
+    return torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def conv2d3x3_dgrad_plain(g, y, w, x_shape, *, stride: int = 1,
+                          relu: bool = True):
+    """Plain version of dgrad: the nine taps transposed, each window of the
+    padded input taking ``g' @ w[dy, dx].T``, then the padding cropped."""
+    g = relu_mask(g, y, relu)
+    n, h, wd, cin = x_shape
+    ho, ylo, yhi = same_pads(h, stride)
+    wo, xlo, xhi = same_pads(wd, stride)
+    dxp = g.new_zeros((n, h + ylo + yhi, wd + xlo + xhi, cin))
+    for (dy, dx), win in _windows(ho, wo, stride):
+        dxp[win] += g @ w[dy, dx].t()
+    return dxp[:, ylo:ylo + h, xlo:xlo + wd, :]
+
+
+def conv2d3x3_wgrad_plain(g, y, x, *, stride: int = 1, relu: bool = True):
+    """Plain version of wgrad: ``(dw, db)``, each tap's window of the padded
+    input contracted with ``g'`` over every output position."""
+    g = relu_mask(g, y, relu)
+    cin, cout = x.shape[-1], g.shape[-1]
+    xp = _pad(x, stride)
+    gm = g.reshape(-1, cout)
+    dw = g.new_empty((3, 3, cin, cout))
+    for (dy, dx), win in _windows(g.shape[1], g.shape[2], stride):
+        dw[dy, dx] = xp[win].reshape(-1, cin).t() @ gm
+    return dw, gm.sum(0)
+
+
 def _check(x, w, b, stride):
+    """Shapes, types and devices of a call; ``b`` is None for the backward."""
     if x.dim() != 4 or w.shape[:2] != (3, 3) or w.dim() != 4:
         raise ValueError(f"want x (N,H,W,Cin) and w (3,3,Cin,Cout), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     cin, cout = w.shape[2], w.shape[3]
-    if x.shape[-1] != cin or tuple(b.shape) != (cout,):
-        raise ValueError(f"channel mismatch: x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}, b {tuple(b.shape)}")
+    ts = (x, w) if b is None else (x, w, b)
+    if x.shape[-1] != cin or (b is not None and tuple(b.shape) != (cout,)):
+        raise ValueError(f"channel mismatch: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, b {None if b is None else tuple(b.shape)}")
     if not 1 <= cin <= MAX_CIN or not 1 <= cout <= MAX_COUT:
         raise ValueError(f"kernel takes 1..{MAX_CIN} input and 1..{MAX_COUT} "
                          f"output channels, got {cin} -> {cout}")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    if {t.dtype for t in (x, w, b)} != {torch.float32}:
+    if {t.dtype for t in ts} != {torch.float32}:
         raise TypeError("conv2d3x3 takes float32 tensors")
-    if not (x.device == w.device == b.device):
+    if len({t.device for t in ts}) != 1:
         raise ValueError("x, w and b must share one device")
+
+
+def _cuda_operands(name: str, *ts: torch.Tensor) -> list[torch.Tensor]:
+    """The operands of a launch: contiguous, 16-byte aligned (an offset view
+    is copied), indexable in 32 bits."""
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    out = []
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{name} takes tensors of fewer than 2**31 elements")
+        out.append(t.clone() if t.data_ptr() % 16 else t)
+    return out
 
 
 def _load():
@@ -99,6 +165,19 @@ def _load():
     return _lib
 
 
+def _load_bwd():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("conv2d3x3_bwd")
+        lib.conv2d3x3_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+        lib.conv2d3x3_bwd_launch.restype = ctypes.c_int
+        lib.conv2d3x3_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.conv2d3x3_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
+
+
 def conv2d3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
     """Forward of the 3×3 conv: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -106,22 +185,18 @@ def conv2d3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
     _check(x, w, b, stride)
     if x.device.type == "cpu":
         return conv2d3x3_plain(x, w, b, stride=stride, relu=relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv2d3x3 runs on cuda or cpu, not {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
-        raise ValueError("conv2d3x3 takes contiguous tensors")
-    n, h, wd, cin = x.shape
-    cout = w.shape[-1]
-    ho, ylo, _ = same_pads(h, stride)
-    wo, xlo, _ = same_pads(wd, stride)
-    y = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=x.device)
+    x, w, b = _cuda_operands("conv2d3x3", x, w, b)
+    n, h, wd, _ = x.shape
+    y = torch.empty((n, same_pads(h, stride)[0], same_pads(wd, stride)[0],
+                     w.shape[-1]), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
     lib = _load()
     err = lib.conv2d3x3_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd, cin,
-        cout, ho, wo, stride, ylo, xlo, int(relu), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd,
+        x.shape[3], y.shape[3], y.shape[1], y.shape[2], stride,
+        same_pads(h, stride)[1], same_pads(wd, stride)[1], int(relu),
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("conv2d3x3 launch failed: "
                            + lib.conv2d3x3_error_string(err).decode())
@@ -129,9 +204,55 @@ def conv2d3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
     return y
 
 
+def conv2d3x3_bwd(g, y, x, w, *, stride: int = 1, relu: bool = True,
+                  need_dx: bool = True):
+    """Gradients ``(dx, dw, db)`` of the conv at the output gradient ``g``,
+    with ``y`` the forward's output (ReLU mask); ``dx`` is None unless
+    ``need_dx``.  The CUDA kernels for CUDA tensors, the plain versions for
+    CPU tensors."""
+    global bwd_launches
+    _check(x, w, None, stride)
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    want = (n, same_pads(h, stride)[0], same_pads(wd, stride)[0], cout)
+    if tuple(g.shape) != want or tuple(y.shape) != want:
+        raise ValueError(f"g and y must be {want}, got {tuple(g.shape)} and "
+                         f"{tuple(y.shape)}")
+    if g.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError("conv2d3x3_bwd takes float32 tensors")
+    if not (g.device == y.device == x.device):
+        raise ValueError("g, y, x and w must share one device")
+    if x.device.type == "cpu":
+        dx = (conv2d3x3_dgrad_plain(g, y, w, x.shape, stride=stride, relu=relu)
+              if need_dx else None)
+        return (dx, *conv2d3x3_wgrad_plain(g, y, x, stride=stride, relu=relu))
+    x, w, y, g = _cuda_operands("conv2d3x3_bwd", x, w, y, g)
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w)
+    db = torch.empty(cout, dtype=torch.float32, device=x.device)
+    if g.numel() == 0:
+        if need_dx:
+            dx.zero_()
+        return dx, dw.zero_(), db.zero_()
+    partial = torch.empty((WGRAD_ROWS, 9 * cin * cout + cout),
+                          dtype=torch.float32, device=x.device)
+    lib = _load_bwd()
+    err = lib.conv2d3x3_bwd_launch(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), g.data_ptr(),
+        dx.data_ptr() if need_dx else None, dw.data_ptr(), db.data_ptr(),
+        partial.data_ptr(), WGRAD_ROWS, n, h, wd, cin, cout, want[1], want[2],
+        stride, same_pads(h, stride)[1], same_pads(wd, stride)[1], int(relu),
+        int(need_dx), x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("conv2d3x3_bwd launch failed: "
+                           + lib.conv2d3x3_bwd_error_string(err).decode())
+    bwd_launches += 1
+    return dx, dw, db
+
+
 class Conv3x3(torch.autograd.Function):
-    """Autograd around :func:`conv2d3x3`: the kernel forward, a plain
-    PyTorch backward."""
+    """Autograd around :func:`conv2d3x3` and :func:`conv2d3x3_bwd`."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride: int, relu: bool):
@@ -143,23 +264,10 @@ class Conv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
-        if ctx.relu:
-            g = g * (y > 0)
-        cout = w.shape[-1]
-        n, h, wd, cin = x.shape
-        xp, taps, (ylo, xlo) = _taps(x, ctx.stride)
-        gm = g.reshape(-1, cout)
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dw = torch.empty_like(w) if need_w else None
-        dxp = torch.zeros_like(xp) if need_x else None
-        for (dy, dx), win in taps:
-            if need_w:
-                dw[dy, dx] = xp[win].reshape(-1, cin).t() @ gm
-            if need_x:
-                dxp[win] += g @ w[dy, dx].t()
-        dx_ = dxp[:, ylo:ylo + h, xlo:xlo + wd, :] if need_x else None
-        db = gm.sum(0) if need_b else None
-        return dx_, dw, db, None, None
+        dx, dw, db = conv2d3x3_bwd(g.contiguous(), y, x, w, stride=ctx.stride,
+                                   relu=ctx.relu, need_dx=need_x)
+        return dx, dw if need_w else None, db if need_b else None, None, None
 
 
 def conv3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:

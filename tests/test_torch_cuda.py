@@ -14,11 +14,13 @@ from repro_torch.kernels import fused_enhance as fe
 from repro_torch.kernels import lorenzo3d
 
 # (N, H, W, Cin, Cout, stride): odd sizes, stride 2 on odd and even sizes
-# (XLA's SAME pads lo=0, hi=1 there), Cout=1, and the enhancer's conv_in and
-# down1 on a 512×512 training batch.
+# (XLA's SAME pads lo=0, hi=1 there), Cout=1, and the enhancer's six conv
+# layers on a 512×512 training batch (conv_in, down1-4, conv_out).
 CONV_CASES = [(2, 17, 13, 1, 4, 1), (2, 17, 13, 4, 6, 2), (2, 16, 12, 6, 8, 2),
               (2, 17, 13, 8, 1, 1), (2, 9, 7, 16, 3, 2), (10, 512, 512, 1, 4, 1),
-              (10, 512, 512, 4, 4, 2)]
+              (10, 512, 512, 4, 4, 2), (10, 256, 256, 4, 6, 2),
+              (10, 128, 128, 6, 6, 2), (10, 64, 64, 6, 8, 2),
+              (10, 512, 512, 8, 1, 1)]
 
 
 @pytest.fixture
@@ -46,17 +48,64 @@ def test_conv_kernel_matches_plain(cuda_device, n, h, w, cin, cout, stride, relu
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _bwd_inputs(device, n, h, w, cin, cout, stride, relu):
+    """x, w, the kernel forward's y and an output gradient g."""
+    gen = torch.Generator().manual_seed(h * w + cin + 7)
+    x = torch.randn((n, h, w, cin), generator=gen).to(device)
+    wt = (torch.randn((3, 3, cin, cout), generator=gen) * 0.3).to(device)
+    b = (torch.randn((cout,), generator=gen) * 0.1).to(device)
+    y = conv.conv2d3x3(x, wt, b, stride=stride, relu=relu)
+    g = torch.randn(tuple(y.shape), generator=gen).to(device)
+    return x, wt, y, g
+
+
 @pytest.mark.cuda
-def test_conv_autograd_on_gpu(cuda_device):
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("n,h,w,cin,cout,stride", CONV_CASES)
+def test_conv_bwd_kernels_match_plain(cuda_device, n, h, w, cin, cout, stride,
+                                      relu):
+    x, wt, y, g = _bwd_inputs(cuda_device, n, h, w, cin, cout, stride, relu)
+    before = conv.bwd_launches
+    dx, dw, db = conv.conv2d3x3_bwd(g, y, x, wt, stride=stride, relu=relu)
+    again = conv.conv2d3x3_bwd(g, y, x, wt, stride=stride, relu=relu)
+    torch.cuda.synchronize()
+    assert conv.bwd_launches == before + 2
+    # Deterministic: the same inputs give the same bytes.
+    for a, e in zip((dx, dw, db), again):
+        assert torch.equal(a.view(torch.int32), e.view(torch.int32))
+    want_dx = conv.conv2d3x3_dgrad_plain(g, y, wt, x.shape, stride=stride, relu=relu)
+    want_dw, want_db = conv.conv2d3x3_wgrad_plain(g, y, x, stride=stride, relu=relu)
+    # dx: float32 sums of <= 9*Cout = 72 terms in another order.
+    torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    # dw and db sum up to N*Ho*Wo = 2.6M float32 terms, in blocks, in
+    # another order than cuBLAS's: each within 1e-5 of the sum of its terms'
+    # absolute values (sum |x * g'|), where a wrong or missing tap would
+    # move it by a large share.
+    gm = conv.relu_mask(g, y, relu).abs()
+    terms_dw, terms_db = conv.conv2d3x3_wgrad_plain(gm, y, x.abs(), stride=stride,
+                                                    relu=False)
+    assert ((dw - want_dw).abs() <= 1e-5 * terms_dw + 1e-6).all()
+    assert ((db - want_db).abs() <= 1e-5 * terms_db + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx", [True, False])
+def test_conv_autograd_on_gpu(cuda_device, need_dx):
+    """Through the autograd function: one backward launch per call (dgrad
+    skipped without an input gradient), matching the plain backward."""
     gen = torch.Generator().manual_seed(3)
     x, wt, b = (t.to(cuda_device).requires_grad_() for t in (
         torch.randn((2, 17, 13, 4), generator=gen),
         torch.randn((3, 3, 4, 6), generator=gen) * 0.3,
         torch.randn((6,), generator=gen) * 0.1))
+    x.requires_grad_(need_dx)
+    inputs = (x, wt, b) if need_dx else (wt, b)
     g = torch.randn((2, 9, 7, 6), generator=gen).to(cuda_device)
-    got = torch.autograd.grad(conv.conv3x3(x, wt, b, stride=2), (x, wt, b), g)
-    want = torch.autograd.grad(conv.conv2d3x3_plain(x, wt, b, stride=2),
-                               (x, wt, b), g)
+    before = (conv.launches, conv.bwd_launches)
+    got = torch.autograd.grad(conv.conv3x3(x, wt, b, stride=2), inputs, g)
+    torch.cuda.synchronize()
+    assert (conv.launches, conv.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(conv.conv2d3x3_plain(x, wt, b, stride=2), inputs, g)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
 
@@ -170,7 +219,8 @@ def test_lorenzo_session_round_trip(cuda_device):
     dec = arc.decode_all()
     counts = kernels.launch_counts()
     assert counts["lorenzo3d_fwd"] == 1 and counts["lorenzo3d_inv"] == 1
-    assert counts["conv2d3x3"] > 0 and counts["fused_enhance"] == 6
+    assert counts["conv2d3x3"] > 0 and counts["conv2d3x3_bwd"] > 0
+    assert counts["fused_enhance"] == 6
     assert arc["timing"]["conv_stage"]["batched_fields"] == 3
     for name, x in fields.items():
         e = arc["fields"][name]

@@ -1,8 +1,10 @@
 """The port's kernel modules: each plain PyTorch version against the JAX
 package (conv2d3x3 against the Pallas kernel in interpret mode and its
-``ref.py`` oracle; fused_enhance against the eager reference that writes
-archives), and the CPU routing of the wrappers.  The CUDA kernels against
+``ref.py`` oracle, its dgrad and wgrad against ``jax.vjp`` of that oracle;
+fused_enhance against the eager reference that writes archives), and the
+CPU routing of the wrappers.  The CUDA kernels against
 their plain versions: ``test_torch_cuda.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +72,73 @@ def test_conv_backward_matches_autograd_of_plain(h, w, cin, cout, stride):
         torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
 
 
+def _vjp_ref(x, wt, b, g, stride, relu):
+    """The JAX package's gradient of its conv oracle at ``g``:
+    ``(y, dx, dw, db)`` as numpy arrays."""
+    y, pullback = jax.vjp(
+        lambda a, c, d: kernel_ref.conv2d3x3_ref(a, c, d, stride=stride, relu=relu),
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b))
+    return (np.array(y), *(np.array(t) for t in pullback(jnp.asarray(g))))
+
+
+def _out_grad(h, w, cout, stride):
+    return np.random.default_rng([h, w, cout, stride]).standard_normal(
+        (2, port_conv.same_pads(h, stride)[0], port_conv.same_pads(w, stride)[0],
+         cout)).astype(np.float32)
+
+
+def _assert_sums_close(got, want, terms):
+    """``got`` within 1e-5 of each sum's own scale ``terms`` (the sum of
+    the absolute values of its float32 terms, up to 2·Ho·Wo = 442 of them
+    here): another summation order moves a sum by a few ulp of that scale,
+    a wrong or missing term by a large share of it."""
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    bound = 1e-5 * np.asarray(terms, np.float64) + 1e-6
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("h,w,cin,cout,stride", CONV_CASES)
+def test_conv_dgrad_wgrad_plain_match_jax_vjp(h, w, cin, cout, stride, relu):
+    x, wt, b = _conv_inputs(h, w, cin, cout)
+    g = _out_grad(h, w, cout, stride)
+    y, dx, dw, db = _vjp_ref(x, wt, b, g, stride, relu)
+    # The reference's own output carries the ReLU mask to both sides.
+    yt, gt, xt, wtt = (torch.from_numpy(a) for a in (y, g, x, wt))
+    got_dx = port_conv.conv2d3x3_dgrad_plain(gt, yt, wtt, x.shape,
+                                             stride=stride, relu=relu)
+    got_dw, got_db = port_conv.conv2d3x3_wgrad_plain(gt, yt, xt, stride=stride,
+                                                     relu=relu)
+    assert got_dx.shape == dx.shape and got_dw.shape == dw.shape
+    # dx: float32 sums of <= 9*Cout = 72 terms in another order.
+    np.testing.assert_allclose(got_dx.numpy(), dx, rtol=1e-5, atol=1e-5)
+    gm = port_conv.relu_mask(gt, yt, relu).abs()
+    terms_dw, terms_db = port_conv.conv2d3x3_wgrad_plain(gm, yt, xt.abs(),
+                                                         stride=stride, relu=False)
+    _assert_sums_close(got_dw.numpy(), dw, terms_dw.numpy())
+    _assert_sums_close(got_db.numpy(), db, terms_db.numpy())
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("h,w,cin,cout,stride", [CONV_CASES[1], CONV_CASES[2]])
+def test_conv3x3_autograd_matches_jax_vjp(h, w, cin, cout, stride, need_dx):
+    """Through the autograd function on CPU tensors, with and without an
+    input gradient (the enhancer's conv_in needs none)."""
+    x, wt, b = _conv_inputs(h, w, cin, cout)
+    g = _out_grad(h, w, cout, stride)
+    _, dx, dw, db = _vjp_ref(x, wt, b, g, stride, True)
+    xt = torch.from_numpy(x).requires_grad_(need_dx)
+    wtt, bt = (torch.from_numpy(a).requires_grad_() for a in (wt, b))
+    inputs = (xt, wtt, bt) if need_dx else (wtt, bt)
+    got = torch.autograd.grad(port_conv.conv3x3(xt, wtt, bt, stride=stride),
+                              inputs, torch.from_numpy(g))
+    want = (dx, dw, db) if need_dx else (dw, db)
+    # Same terms summed in another order (float32), <= 442 terms of |x·g|
+    # below 10: 1e-4 absolute.
+    for a, e in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), e, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("mode", ["strict", "relaxed"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_fused_enhance_byte_identical_to_reference(dtype, mode):
@@ -121,8 +190,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     port_conv.conv2d3x3(x, wt, b)
     z = torch.zeros(5, dtype=torch.float32)
     port_fe.fused_enhance(z, z.double(), z.double(), 0.1)
-    assert kernels.launch_counts() == {"conv2d3x3": 0, "fused_enhance": 0,
-                                       "lorenzo3d_fwd": 0, "lorenzo3d_inv": 0}
+    gx, gw, gb = (t.requires_grad_() for t in (x.clone(), wt.clone(), b.clone()))
+    port_conv.conv3x3(gx, gw, gb).sum().backward()
+    assert kernels.launch_counts() == {"conv2d3x3": 0, "conv2d3x3_bwd": 0,
+                                       "fused_enhance": 0, "lorenzo3d_fwd": 0,
+                                       "lorenzo3d_inv": 0}
     with pytest.raises(ValueError, match="output channels"):
         port_conv.conv2d3x3(x, torch.zeros(3, 3, 2, 9), torch.zeros(9))
     with pytest.raises(TypeError, match="float32"):
