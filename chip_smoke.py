@@ -12,13 +12,15 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    PyTorch version: ``conv2d3x3`` at every conv shape of the enhancer's
    forward (N=10 training batches and N=64 inference chunks of 512×512
    slices) plus odd sizes, stride 2 and Cout=1; its backward
-   ``conv2d3x3_bwd`` (dgrad, wgrad) at the six training shapes and the odd
-   and even test shapes, twice on the same inputs (byte-identical);
+   ``conv2d3x3_bwd`` (dgrad and wgrad in one launch, two at down1-down3)
+   at the six training shapes and the odd and even test shapes, twice on
+   the same inputs (byte-identical);
    ``fused_enhance`` byte for
    byte in float32 and float64, strict and relaxed, on the double-rounding
    canary and on a full field; ``lorenzo3d_fwd`` and ``lorenzo3d_inv`` byte
    for byte on the stacked float64 group of the snapshot's three fields
-   (each with its own bound) and on the reference's probe canaries;
+   (each with its own bound) and on the reference's probe canaries, the
+   inverse allocating no full-size scratch;
 4. the main path at the paper's Hurricane-ISABEL size (three fields of
    100×500×500 float32, synthetic, from a seed): ``NeurLZ(device="cuda")
    .compress`` at rel_eb 1e-3 in strict mode, ``save``, ``Archive.open``,
@@ -135,7 +137,7 @@ def device_events(prof) -> list:
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
               per_call: int = 1, name: str | None = None,
-              split: dict | None = None) -> float:
+              by_name: dict | None = None) -> float:
     """Mean device time of one call of ``fn``: the summed durations of the
     device activities (kernels, copies, fills) of ``iters`` calls in a
     torch.profiler trace, over ``iters``.  Host time between launches is not
@@ -143,8 +145,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
     ``per_call`` kernels per call whose name holds that string; without,
     a positive multiple of ``iters`` device activities.  An incomplete
     trace is taken again (noted in ``RETRACED``); after TRACE_TRIES
-    incomplete traces it raises.  ``split`` maps labels to name parts; it
-    is filled in place with each label's device time per call."""
+    incomplete traces it raises.  ``by_name``, where given, is filled in
+    place with each device activity's name and its device time per call."""
     for _ in range(warmup):
         fn()
 
@@ -162,9 +164,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
                 RETRACED[name or kernel or "fn"] = attempt
                 print(f"device_ms: {name or kernel}: {attempt} traces "
                       f"(device activities seen: {counts})")
-            for label, part in (split or {}).items():
-                split[label] = sum(e.time_range.elapsed_us() for e in events
-                                   if part in e.name) / 1e3 / iters
+            for e in events if by_name is not None else ():
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / iters)
             return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
     raise AssertionError(
         f"device_ms: {name or kernel}: {TRACE_TRIES} incomplete traces of "
@@ -175,6 +177,33 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str | None = None,
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def path_needs_dx(layer: str) -> bool:
+    """Whether a training step asks the conv backward for dx at this layer
+    of LAYERS_512: not at conv_in, whose input takes no gradient."""
+    return layer != "conv_in"
+
+
+def time_bwd(conv, g, y, x, wt, *, stride: int, relu: bool, need_dx: bool,
+             name: str, by_name: dict | None = None) -> tuple[float, int]:
+    """Device time of one ``conv2d3x3_bwd`` call and the kernels a call
+    launches (``bwd_kernels_per_call``): each trace must hold exactly that
+    many ``conv3x3_bwd`` kernels a call."""
+    per_call = conv.bwd_kernels_per_call(x.shape, wt.shape[-1], stride=stride,
+                                         need_dx=need_dx)
+    ms = device_ms(lambda: conv.conv2d3x3_bwd(g, y, x, wt, stride=stride,
+                                              relu=relu, need_dx=need_dx),
+                   kernel="conv3x3_bwd", per_call=per_call, name=name,
+                   by_name=by_name)
+    return ms, per_call
+
+
+def time_lorenzo_inv(lz, delta, eb, by_name: dict | None = None) -> float:
+    """Device time of one ``lorenzo3d_inv`` call: two kernels, the bands'
+    carry rows, then each band's walk over z."""
+    return device_ms(lambda: lz.lorenzo3d_inv(delta, eb), kernel="lorenzo3d_inv",
+                     per_call=2, by_name=by_name)
 
 
 def conv_phase(dev, report: dict) -> dict:
@@ -247,10 +276,16 @@ def conv_phase(dev, report: dict) -> dict:
 
 def conv_bwd_phase(dev, report: dict) -> dict:
     """``conv2d3x3_bwd`` against its plain version at the six training
-    shapes (N=10, 512²) and the odd and even test shapes, twice on the same
-    inputs (byte-identical), then timed at the training shapes as the main
-    path calls it (conv_in without dgrad) beside the plain version and one
-    ``aten.convolution_backward`` call."""
+    shapes (N=10, 512²) and the odd and even test shapes, with and without
+    dx (the wgrad launch is sized by dgrad's share, so each is its own
+    configuration), each twice on the same inputs (byte-identical); then
+    timed at the training shapes as the main path calls it (conv_in
+    without dgrad) beside the plain version and one
+    ``aten.convolution_backward`` call.  A call is one launch, or two
+    where dgrad runs apart from wgrad (``kernels_per_call``, from the
+    wrapper's ``bwd_kernels_per_call``; each trace must hold exactly that
+    many kernels a call); where the path needs dx, the same call without
+    dx (``ms_without_dx``, wgrad alone) shows what dgrad adds."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv2d3x3 as conv
@@ -268,32 +303,42 @@ def conv_bwd_phase(dev, report: dict) -> dict:
         b = (torch.randn((cout,), generator=gen) * 0.1).to(dev)
         y = conv.conv2d3x3(x, wt, b, stride=s, relu=relu)
         g = torch.randn(tuple(y.shape), generator=gen).to(dev)
-        got = conv.conv2d3x3_bwd(g, y, x, wt, stride=s, relu=relu)
-        again = conv.conv2d3x3_bwd(g, y, x, wt, stride=s, relu=relu)
-        if not all(_bits_equal(a, e) for a, e in zip(got, again)):
-            raise AssertionError(f"conv2d3x3_bwd {name}: two calls differ")
         want_dx = conv.conv2d3x3_dgrad_plain(g, y, wt, x.shape, stride=s, relu=relu)
         want_dw, want_db = conv.conv2d3x3_wgrad_plain(g, y, x, stride=s, relu=relu)
         gm = conv.relu_mask(g, y, relu)
         terms_dw, terms_db = conv.conv2d3x3_wgrad_plain(gm.abs(), y, x.abs(),
                                                         stride=s, relu=False)
-        torch.cuda.synchronize()
-        errs = {"dx": float((got[0] - want_dx).abs().max()),
-                "dw": float((got[1] - want_dw).abs().max()),
-                "db": float((got[2] - want_db).abs().max())}
-        dx_scale = max(1.0, float(want_dx.abs().max()))
-        if not errs["dx"] <= CONV_TOL * dx_scale:
-            raise AssertionError(f"conv2d3x3_bwd {name}: dx max |kernel - plain| "
-                                 f"{errs['dx']} > {CONV_TOL} * {dx_scale}")
-        for k, a, e, t in (("dw", got[1], want_dw, terms_dw),
-                           ("db", got[2], want_db, terms_db)):
-            if not bool(((a - e).abs() <= WGRAD_TOL * t + 1e-6).all()):
-                raise AssertionError(f"conv2d3x3_bwd {name}: {k} beyond "
-                                     f"{WGRAD_TOL} * sum|x g'| ({errs[k]})")
+        errs = {}
+        for with_dx in (True, False):
+            tag = "" if with_dx else "_without_dx"
+            got = conv.conv2d3x3_bwd(g, y, x, wt, stride=s, relu=relu,
+                                     need_dx=with_dx)
+            again = conv.conv2d3x3_bwd(g, y, x, wt, stride=s, relu=relu,
+                                       need_dx=with_dx)
+            if (got[0] is None) == with_dx:
+                raise AssertionError(f"conv2d3x3_bwd {name}{tag}: dx is "
+                                     f"{'missing' if with_dx else 'returned'}")
+            if not all(_bits_equal(a, e) for a, e in zip(got, again)
+                       if a is not None):
+                raise AssertionError(f"conv2d3x3_bwd {name}{tag}: two calls differ")
+            torch.cuda.synchronize()
+            if with_dx:
+                errs["dx"] = float((got[0] - want_dx).abs().max())
+                dx_scale = max(1.0, float(want_dx.abs().max()))
+                if not errs["dx"] <= CONV_TOL * dx_scale:
+                    raise AssertionError(
+                        f"conv2d3x3_bwd {name}: dx max |kernel - plain| "
+                        f"{errs['dx']} > {CONV_TOL} * {dx_scale}")
+            for k, a, e, t in (("dw", got[1], want_dw, terms_dw),
+                               ("db", got[2], want_db, terms_db)):
+                errs[k + tag] = float((a - e).abs().max())
+                if not bool(((a - e).abs() <= WGRAD_TOL * t + 1e-6).all()):
+                    raise AssertionError(f"conv2d3x3_bwd {name}{tag}: {k} beyond "
+                                         f"{WGRAD_TOL} * sum|x g'| ({errs[k + tag]})")
         row = {"case": name, "x": [n, h, w, cin], "cout": cout, "stride": s,
                "relu": relu, "max_abs_err": errs, "identical_twice": True}
         if timed:
-            need_dx = not name.startswith("conv_in")   # as the main path calls it
+            need_dx = path_needs_dx(name.removesuffix("_N10"))
             ho, ylo, yhi = conv.same_pads(h, s)
             wo, xlo, xhi = conv.same_pads(w, s)
             # Bytes: x, w, g (and y for the ReLU mask) read once; dx (where
@@ -325,12 +370,16 @@ def conv_bwd_phase(dev, report: dict) -> dict:
                 return torch.ops.aten.convolution_backward(
                     gl, xl, wl, [cout], [s, s], [0, 0], [1, 1], False, [0, 0],
                     1, [need_dx, True, True])
-            split = {"dgrad": "_dgrad_", "wgrad": "_wgrad_", "wsum": "_wsum_"}
+            by_kernel: dict[str, float] = {}
+            ms, per_call = time_bwd(conv, g, y, x, wt, stride=s, relu=relu,
+                                    need_dx=need_dx, name=f"conv2d3x3_bwd {name}",
+                                    by_name=by_kernel)
             row.update(
-                need_dx=need_dx,
-                ms=device_ms(run, kernel="conv3x3_bwd_", per_call=3 if need_dx else 2,
-                             name=f"conv2d3x3_bwd {name}", split=split),
-                ms_by_kernel=split,
+                need_dx=need_dx, ms=ms, ms_by_kernel=by_kernel,
+                kernels_per_call=per_call,
+                ms_without_dx=time_bwd(
+                    conv, g, y, x, wt, stride=s, relu=relu, need_dx=False,
+                    name=f"conv2d3x3_bwd {name} without dx")[0] if need_dx else None,
                 wall_ms=wall_ms(run),
                 plain_ms=device_ms(plain, iters=5, name=f"conv2d3x3_bwd plain {name}"),
                 library_ms=device_ms(library, name=f"convolution_backward {name}"),
@@ -489,6 +538,19 @@ def lorenzo_phase(dev, fields, report: dict) -> dict:
     checks.append({"group": "snapshot", "shape": list(x.shape),
                    "out_dtype": "torch.float32", "identical": True,
                    "escapes": int(unpred.sum())})
+    # The inverse's scratch: its carry rows, far below a full-size copy of
+    # delta (the output rec aside).
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lz.lorenzo3d_inv(delta, eb)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - 8 * delta.numel()
+    if not scratch < delta.numel() * 4 // 2:
+        raise AssertionError(f"lorenzo3d_inv took {scratch} bytes of scratch, "
+                             f"not below half of delta's {delta.numel() * 4}")
+    checks.append({"group": "snapshot", "inverse_scratch_bytes": scratch,
+                   "delta_bytes": delta.numel() * 4})
     report["lorenzo3d_checks"] = checks
     n, nf = x.numel(), x.shape[0]
     where = f"one call over the stacked {list(x.shape)} float64 group"
@@ -505,6 +567,7 @@ def lorenzo_phase(dev, fields, report: dict) -> dict:
 
     def inv():
         return lz.lorenzo3d_inv(delta, eb)
+    inv_split: dict[str, float] = {}
     out = {
         "lorenzo3d_fwd": {
             "max_abs_err": 0.0, "ms": device_ms(fwd, kernel="lorenzo3d_fwd_kernel"),
@@ -516,14 +579,17 @@ def lorenzo_phase(dev, fields, report: dict) -> dict:
             "bytes": fwd_bytes, "timed_at": where},
         "lorenzo3d_inv": {
             "max_abs_err": 0.0,
-            "ms": device_ms(inv, kernel="lorenzo3d_inv", per_call=2),
+            "ms": time_lorenzo_inv(lz, delta, eb, by_name=inv_split),
+            "ms_by_kernel": inv_split,
             "wall_ms": wall_ms(inv),
             "plain_ms": device_ms(lambda: lz.lorenzo_decode_plain(delta, eb),
                                   iters=5, name="lorenzo_decode_plain"),
             "bound_ms": inv_bound, "bound_by": inv_by, "library_ms": None,
             "library": "none: the torch.cumsum chain is three calls and is "
                        "its plain version",
-            "bytes": inv_bytes, "timed_at": where + " (two launches)"},
+            "bytes": inv_bytes,
+            "timed_at": where + " (two launches: the bands' carry rows, then "
+                                "each band's walk over z)"},
     }
     for k, v in out.items():
         print(k, json.dumps(v))

@@ -44,13 +44,21 @@
 // loaded before the current one is differenced.
 //
 // Inverse design: blocks run in no order, so the TPU's carried plane
-// becomes a second pass.  Pass 1: one block per (field, z) plane scans each
-// row along x (warp shuffles, then the warp totals in shared memory) and
-// adds it to a running column sum in shared memory, writing the 2-D prefix
-// to an int32 scratch plane.  Pass 2: one thread per (field, y, x) walks z
-// with a register carry and writes rec.  The scratch costs 8 bytes a point
-// of traffic beyond the bound.  Integer sums wrap (unsigned arithmetic),
-// which is exact for every archive the encoder writes.
+// becomes a reduce pass and a scan pass that wait on no other block, with
+// no full-size scratch.  A field's rows are cut into bands of bh rows
+// (bh = 8 where a band's state fits in shared memory, fewer for very wide
+// rows).  Pass 1 (carry): one thread per (field, z, x) walks the column
+// down the plane and writes, at each band's first row, the sum of the rows
+// above it: carry[f][z][b][x], 1/bh of a plane.  Pass 2 (band): one block
+// per (field, band) walks z.  For each plane it reads the band's rows of
+// delta and its carry row (the next plane's are in flight while it works),
+// scans each column down the band in registers and adds the carry (the
+// column's prefix over y), adds that into the band's running sums over z
+// (bh x W in shared memory), then scans each row along x (warp shuffles,
+// then a scan of the warp totals) and writes rec = q * step.  Traffic:
+// delta is read twice and rec written once, plus the carry rows (1/bh of
+// delta, written once and read once).  Integer sums wrap (unsigned
+// arithmetic), which is exact for every archive the encoder writes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,9 +69,11 @@ constexpr int kCodeCap = 1 << 15;
 constexpr int kTX = 32;
 constexpr int kTY = 8;
 constexpr int kHalo = kTX + 1 + kTY;   // the -1 row with its corner, the -1 column
-constexpr int kScanThreads = 512;
-constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kZThreads = 256;
+constexpr int kCarryThreads = 128;
+constexpr int kBandThreads = 512;
+constexpr int kBandWarps = kBandThreads / 32;
+constexpr int kBandRows = 8;                    // the most rows a band holds
+constexpr int kStateBytes = 220 * 1024;         // shared memory for a band's state
 
 template <bool kF32>
 __device__ __forceinline__ double cast_back(double v) {
@@ -152,66 +162,134 @@ lorenzo3d_fwd_kernel(const double* __restrict__ x, const double* __restrict__ eb
   }
 }
 
-// Pass 1 of the inverse: 2-D inclusive prefix (x, then y) of one (f, z) plane.
-__global__ void __launch_bounds__(kScanThreads)
-lorenzo3d_inv_plane_kernel(const int* __restrict__ delta, int H, int W,
-                           int* __restrict__ q2) {
-  extern __shared__ unsigned colsum[];           // W running column sums
-  __shared__ unsigned wsum[2][kScanWarps];
-  const long long base = (long long)blockIdx.x * H * W;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int x = threadIdx.x; x < W; x += kScanThreads) colsum[x] = 0u;
-  // colsum[x] is touched only by the thread that owns column x: no barrier.
-  int row = 0;   // row-chunks done, picks the warp-total buffer
-  for (int y = 0; y < H; ++y) {
-    unsigned off = 0u;   // sum of this row's earlier chunks
-    const int* drow = delta + base + (long long)y * W;
-    int* qrow = q2 + base + (long long)y * W;
-    for (int c0 = 0; c0 < W; c0 += kScanThreads, ++row) {
-      const int x = c0 + threadIdx.x;
-      unsigned v = x < W ? (unsigned)drow[x] : 0u;
+// Pass 1 of the inverse: carry[f][z][b][x] = sum of delta[f][z][y][x] over
+// the rows y above band b (b * bh), one thread per (f, z, x).
+__global__ void __launch_bounds__(kCarryThreads)
+lorenzo3d_inv_carry_kernel(const int* __restrict__ delta, int H, int W, int bh,
+                           int nb, int xblocks, unsigned* __restrict__ carry) {
+  const int plane = blockIdx.x / xblocks;            // f * D + z
+  const int x = (blockIdx.x - plane * xblocks) * kCarryThreads + threadIdx.x;
+  if (x >= W) return;
+  const int* d = delta + (long long)plane * H * W + x;
+  unsigned* c = carry + (long long)plane * nb * W + x;
+  unsigned s = 0u;
+  int b = 0, left = 0;   // band of the next row, rows left in the current band
+  for (int y0 = 0; y0 < H; y0 += 8) {
+    unsigned v[8];
 #pragma unroll
-      for (int s = 1; s < 32; s <<= 1) {
-        const unsigned u = __shfl_up_sync(0xffffffffu, v, s);
-        if (lane >= s) v += u;
-      }
-      unsigned* ws = wsum[row & 1];
-      if (lane == 31) ws[warp] = v;
-      __syncthreads();
-      unsigned before = 0u, total = 0u;
+    for (int i = 0; i < 8; ++i)
+      v[i] = y0 + i < H ? (unsigned)__ldg(d + (long long)(y0 + i) * W) : 0u;
 #pragma unroll
-      for (int k = 0; k < kScanWarps; ++k) {
-        const unsigned t = ws[k];
-        if (k < warp) before += t;
-        total += t;
+    for (int i = 0; i < 8; ++i) {
+      if (y0 + i >= H) break;
+      if (left == 0) {
+        c[(long long)b * W] = s;
+        ++b;
+        left = bh;
       }
-      // ws is rewritten two chunks later, after the next chunk's barrier,
-      // which every thread reaches only once these reads are done.
-      if (x < W) {
-        const unsigned s = colsum[x] + v + before + off;
-        colsum[x] = s;
-        qrow[x] = (int)s;
-      }
-      off += total;
+      s += v[i];
+      --left;
     }
   }
 }
 
-// Pass 2 of the inverse: prefix over z and dequantize, one thread per (f, y, x).
-__global__ void __launch_bounds__(kZThreads)
-lorenzo3d_inv_z_kernel(const int* __restrict__ q2, const double* __restrict__ eb,
-                       int F, int D, long long plane, double* __restrict__ rec) {
-  const long long i = (long long)blockIdx.x * kZThreads + threadIdx.x;
-  if (i >= (long long)F * plane) return;
-  const int f = (int)(i / plane);
-  const long long p = i - (long long)f * plane;
+// Pass 2 of the inverse: block (f, b) walks z over the band's rows.
+__global__ void __launch_bounds__(kBandThreads)
+lorenzo3d_inv_band_kernel(const int* __restrict__ delta,
+                          const unsigned* __restrict__ carry,
+                          const double* __restrict__ eb, int D, int H, int W,
+                          int bh, int nb, double* __restrict__ rec) {
+  extern __shared__ unsigned state[];   // [bh][W]: sums over z of the column prefix
+  __shared__ unsigned wtot[2][kBandRows][kBandWarps];   // warp totals of a row chunk
+  __shared__ uint4 wpre[2][kBandWarps][kBandRows / 4];  // their exclusive scan
+  __shared__ unsigned ctot[2][kBandRows];               // a row chunk's total
+  const int f = blockIdx.x / nb, b = blockIdx.x - f * nb;
+  const int y0 = b * bh;
+  const int rows = H - y0 < bh ? H - y0 : bh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const double step = __dmul_rn(2.0, eb[f]);
-  const long long base = (long long)f * D * plane + p;
-  unsigned acc = 0u;
-#pragma unroll 4
-  for (int z = 0; z < D; ++z) {
-    acc += (unsigned)q2[base + (long long)z * plane];
-    rec[base + (long long)z * plane] = __dmul_rn((double)(int)acc, step);
+  const long long plane = (long long)H * W;
+  const int* dband = delta + (long long)f * D * plane + (long long)y0 * W;
+  const unsigned* cband = carry + ((long long)f * D * nb + b) * W;
+  double* rband = rec + (long long)f * D * plane + (long long)y0 * W;
+  for (int i = tid; i < rows * W; i += kBandThreads) state[i] = 0u;
+  __syncthreads();
+
+  const int chunks = (W + kBandThreads - 1) / kBandThreads;
+  const int steps = D * chunks;
+  // The loads of step k: the band's rows of delta and the carry row at
+  // plane z, columns of chunk ch.
+  unsigned dn[kBandRows], cn = 0u;
+  auto load = [&](int k) {
+    const int z = k / chunks, x = (k - z * chunks) * kBandThreads + tid;
+    if (x >= W) return;
+    const int* dp = dband + (long long)z * plane + x;
+#pragma unroll
+    for (int i = 0; i < kBandRows; ++i)
+      if (i < rows) dn[i] = (unsigned)__ldg(dp + (long long)i * W);
+    cn = __ldg(cband + (long long)z * nb * W + x);
+  };
+  load(0);
+  unsigned off[kBandRows];   // sums of the row's earlier chunks
+  for (int k = 0; k < steps; ++k) {
+    const int z = k / chunks, ch = k - z * chunks;
+    const int x = ch * kBandThreads + tid;
+    const int par = k & 1;
+    unsigned d[kBandRows];
+#pragma unroll
+    for (int i = 0; i < kBandRows; ++i) d[i] = dn[i];
+    unsigned u = cn;
+    if (k + 1 < steps) load(k + 1);
+    if (ch == 0) {
+#pragma unroll
+      for (int i = 0; i < kBandRows; ++i) off[i] = 0u;
+    }
+    // Down the column (the carry holds the rows above the band), into the
+    // running sums over z, then the inclusive scan along x within the warp.
+    unsigned v[kBandRows];
+#pragma unroll
+    for (int i = 0; i < kBandRows; ++i) {
+      v[i] = 0u;
+      if (i < rows && x < W) {
+        u += d[i];
+        v[i] = state[i * W + x] + u;
+        state[i * W + x] = v[i];
+      }
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const unsigned t = __shfl_up_sync(0xffffffffu, v[i], s);
+        if (lane >= s) v[i] += t;
+      }
+      if (lane == 31) wtot[par][i][warp] = v[i];
+    }
+    __syncthreads();
+    // Warp i scans row i's warp totals.
+    if (warp < rows) {
+      const unsigned t = lane < kBandWarps ? wtot[par][warp][lane] : 0u;
+      unsigned incl = t;
+#pragma unroll
+      for (int s = 1; s < kBandWarps; s <<= 1) {
+        const unsigned w = __shfl_up_sync(0xffffffffu, incl, s);
+        if (lane >= s) incl += w;
+      }
+      if (lane < kBandWarps)
+        reinterpret_cast<unsigned*>(&wpre[par][lane][0])[warp] = incl - t;
+      if (lane == kBandWarps - 1) ctot[par][warp] = incl;
+    }
+    __syncthreads();
+    // wtot[par], wpre[par] and ctot[par] are written again two steps on,
+    // after the next step's first barrier, which every thread reaches only
+    // once these reads are done.
+    const unsigned* pre = reinterpret_cast<const unsigned*>(&wpre[par][warp][0]);
+#pragma unroll
+    for (int i = 0; i < kBandRows; ++i) {
+      if (i >= rows) break;
+      const unsigned q = v[i] + pre[i] + off[i];
+      off[i] += ctot[par][i];
+      if (x < W)
+        rband[(long long)z * plane + (long long)i * W + x] =
+            __dmul_rn((double)(int)q, step);
+    }
   }
 }
 
@@ -240,29 +318,41 @@ extern "C" int lorenzo3d_fwd(const void* x, const void* eb, int F, int D, int H,
   return (int)cudaGetLastError();
 }
 
+// Rows a band of the inverse holds for rows of W points: kBandRows where
+// the band's state fits in shared memory, fewer for very wide rows; 0 when
+// not even one row fits.
+extern "C" int lorenzo3d_inv_band_rows(int W) {
+  const long long rows = kStateBytes / (4LL * (W > 0 ? W : 1));
+  return rows < kBandRows ? (int)rows : kBandRows;
+}
+
+// carry holds F * D * ceil(H / bh) * W unsigned ints, bh from
+// lorenzo3d_inv_band_rows(W).
 extern "C" int lorenzo3d_inv(const void* delta, const void* eb, int F, int D,
-                             int H, int W, void* scratch, void* rec, int device,
-                             void* stream) {
+                             int H, int W, int bh, void* carry, void* rec,
+                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)F * D * H * W == 0) return 0;
+  if (bh < 1 || bh > lorenzo3d_inv_band_rows(W)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)W * sizeof(unsigned);
+  const int nb = (H + bh - 1) / bh;
+  const int xblocks = (W + kCarryThreads - 1) / kCarryThreads;
+  lorenzo3d_inv_carry_kernel<<<(unsigned)((long long)F * D * xblocks), kCarryThreads, 0, s>>>(
+      static_cast<const int*>(delta), H, W, bh, nb, xblocks,
+      static_cast<unsigned*>(carry));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = (size_t)bh * W * sizeof(unsigned);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lorenzo3d_inv_plane_kernel,
+    err = cudaFuncSetAttribute(lorenzo3d_inv_band_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  lorenzo3d_inv_plane_kernel<<<(unsigned)((long long)F * D), kScanThreads, smem, s>>>(
-      static_cast<const int*>(delta), H, W, static_cast<int*>(scratch));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long plane = (long long)H * W;
-  const long long n = (long long)F * plane;
-  lorenzo3d_inv_z_kernel<<<(unsigned)((n + kZThreads - 1) / kZThreads), kZThreads, 0, s>>>(
-      static_cast<const int*>(scratch), static_cast<const double*>(eb), F, D,
-      plane, static_cast<double*>(rec));
+  lorenzo3d_inv_band_kernel<<<(unsigned)((long long)F * nb), kBandThreads, smem, s>>>(
+      static_cast<const int*>(delta), static_cast<const unsigned*>(carry),
+      static_cast<const double*>(eb), D, H, W, bh, nb, static_cast<double*>(rec));
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,11 @@ arithmetic (``lo = total // 2``): at stride 2 on an even size the padding is
 ``lo=0, hi=1``, which is not ``torch.nn.functional.conv2d(padding=1)``.
 
 The backward reads the forward's saved output ``y`` for the ReLU mask
-(``g' = g`` where ``y > 0``, else 0).  On CUDA one C call launches dgrad
-(skipped when the input needs no gradient) and the two passes of wgrad.
+(``g' = g`` where ``y > 0``, else 0).  On CUDA it is one launch: dgrad
+blocks (none when the input needs no gradient) and wgrad blocks in one
+grid, the last wgrad block adding the per-block partial sums; at the
+stride-2 layers whose wgrad blocks fill an SM, dgrad is a launch of its
+own before it (``csrc/conv2d3x3_bwd.cu``).
 """
 from __future__ import annotations
 
@@ -30,17 +33,20 @@ from . import _build
 
 MAX_CIN = 16
 MAX_COUT = 8
-# Rows of wgrad's per-block partial sums: its first pass never runs more
-# blocks (kWgradRows in csrc/conv2d3x3_bwd.cu).
+# Rows of wgrad's per-block partial sums: a call never runs more wgrad
+# slots (kWgradRows in csrc/conv2d3x3_bwd.cu).
 WGRAD_ROWS = 264
 
 # Calls that launched their kernels (CUDA route only): forward calls, and
-# backward calls (one C call each: dgrad, then wgrad's two passes).
+# backward calls (one launch each, or two with dgrad apart).
 launches = 0
 bwd_launches = 0
 
 _lib = None
 _bwd_lib = None
+# The backward's ticket counter, one per (device, stream): zero between
+# calls, because the last block of each launch wraps it back to zero.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def same_pads(size: int, stride: int) -> tuple[int, int, int]:
@@ -170,12 +176,28 @@ def _load_bwd():
     if _bwd_lib is None:
         lib = _build.load("conv2d3x3_bwd")
         lib.conv2d3x3_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
         lib.conv2d3x3_bwd_launch.restype = ctypes.c_int
         lib.conv2d3x3_bwd_error_string.argtypes = [ctypes.c_int]
         lib.conv2d3x3_bwd_error_string.restype = ctypes.c_char_p
+        lib.conv2d3x3_bwd_kernels.argtypes = [ctypes.c_int] * 7
+        lib.conv2d3x3_bwd_kernels.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
+
+
+def bwd_kernels_per_call(x_shape, cout: int, *, stride: int = 1,
+                         need_dx: bool = True) -> int:
+    """CUDA kernels one :func:`conv2d3x3_bwd` call launches for an input of
+    ``x_shape`` (N, H, W, Cin): 2 where dgrad is a launch of its own before
+    wgrad's, else 1.  Builds the kernel's library."""
+    n, h, wd, cin = x_shape
+    k = _load_bwd().conv2d3x3_bwd_kernels(n, h, wd, cin, cout, stride,
+                                          int(need_dx))
+    if k == 0:
+        raise ValueError(f"conv2d3x3_bwd takes no Cin={cin}, Cout={cout}, "
+                         f"stride={stride}")
+    return k
 
 
 def conv2d3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
@@ -234,16 +256,19 @@ def conv2d3x3_bwd(g, y, x, w, *, stride: int = 1, relu: bool = True,
         if need_dx:
             dx.zero_()
         return dx, dw.zero_(), db.zero_()
-    partial = torch.empty((WGRAD_ROWS, 9 * cin * cout + cout),
+    partial = torch.empty((WGRAD_ROWS, (9 * cin * cout + cout + 3) // 4 * 4),
                           dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = (x.device.index or 0, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=x.device)
     lib = _load_bwd()
     err = lib.conv2d3x3_bwd_launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), g.data_ptr(),
         dx.data_ptr() if need_dx else None, dw.data_ptr(), db.data_ptr(),
-        partial.data_ptr(), WGRAD_ROWS, n, h, wd, cin, cout, want[1], want[2],
-        stride, same_pads(h, stride)[1], same_pads(wd, stride)[1], int(relu),
-        int(need_dx), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        partial.data_ptr(), _tickets[key].data_ptr(), WGRAD_ROWS, n, h, wd,
+        cin, cout, want[1], want[2], stride, same_pads(h, stride)[1],
+        same_pads(wd, stride)[1], int(relu), int(need_dx), key[0], stream)
     if err:
         raise RuntimeError("conv2d3x3_bwd launch failed: "
                            + lib.conv2d3x3_bwd_error_string(err).decode())

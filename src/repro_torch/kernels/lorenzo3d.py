@@ -21,8 +21,8 @@ from . import _build
 CODE_CAP = 1 << 15    # compressors.quantize.CODE_CAP (kernels import no compressor)
 
 # Calls of :func:`lorenzo3d_fwd` / :func:`lorenzo3d_inv` that launched their
-# kernels (CUDA route only).  An inverse call is two launches: the plane
-# scan, then the walk over z.
+# kernels (CUDA route only).  An inverse call is two launches: the carry
+# rows of each band, then the walk over z of each band.
 fwd_launches = 0
 inv_launches = 0
 
@@ -121,9 +121,11 @@ def _load():
         lib.lorenzo3d_fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                                       + [ctypes.c_void_p])
-        lib.lorenzo3d_inv.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        lib.lorenzo3d_inv.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                                       + [ctypes.c_void_p])
+        lib.lorenzo3d_inv_band_rows.argtypes = [ctypes.c_int]
+        lib.lorenzo3d_inv_band_rows.restype = ctypes.c_int
         for fn in (lib.lorenzo3d_fwd, lib.lorenzo3d_inv):
             fn.restype = ctypes.c_int
         lib.lorenzo3d_error_string.argtypes = [ctypes.c_int]
@@ -182,10 +184,17 @@ def lorenzo3d_inv(delta: torch.Tensor, eb) -> torch.Tensor:
     rec = torch.empty(delta.shape, dtype=torch.float64, device=delta.device)
     if delta.numel() == 0:
         return rec
-    scratch = torch.empty_like(delta)
     lib = _load()
-    err = lib.lorenzo3d_inv(delta.data_ptr(), eb.data_ptr(), f, d, h, w,
-                            scratch.data_ptr(), rec.data_ptr(),
+    bh = lib.lorenzo3d_inv_band_rows(w)
+    if bh < 1:
+        raise ValueError(f"lorenzo3d_inv: rows of {w} points are wider than "
+                         "shared memory holds")
+    # The sum of the rows above each band, per (field, plane, band): 1/bh of
+    # the group, not a full-size scratch.
+    carry = torch.empty((f, d, -(-h // bh), w), dtype=torch.int32,
+                        device=delta.device)
+    err = lib.lorenzo3d_inv(delta.data_ptr(), eb.data_ptr(), f, d, h, w, bh,
+                            carry.data_ptr(), rec.data_ptr(),
                             delta.device.index or 0,
                             torch.cuda.current_stream(delta.device).cuda_stream)
     _raise_on(err, lib, "lorenzo3d_inv")

@@ -60,23 +60,34 @@ def _bwd_inputs(device, n, h, w, cin, cout, stride, relu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("need_dx", [True, False])
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("n,h,w,cin,cout,stride", CONV_CASES)
 def test_conv_bwd_kernels_match_plain(cuda_device, n, h, w, cin, cout, stride,
-                                      relu):
+                                      relu, need_dx):
+    """With and without dx: the wgrad blocks' count, and so the order of
+    the sums, depends on the share of the grid that dgrad takes."""
     x, wt, y, g = _bwd_inputs(cuda_device, n, h, w, cin, cout, stride, relu)
     before = conv.bwd_launches
-    dx, dw, db = conv.conv2d3x3_bwd(g, y, x, wt, stride=stride, relu=relu)
-    again = conv.conv2d3x3_bwd(g, y, x, wt, stride=stride, relu=relu)
+    dx, dw, db = conv.conv2d3x3_bwd(g, y, x, wt, stride=stride, relu=relu,
+                                    need_dx=need_dx)
+    again = conv.conv2d3x3_bwd(g, y, x, wt, stride=stride, relu=relu,
+                               need_dx=need_dx)
     torch.cuda.synchronize()
     assert conv.bwd_launches == before + 2
+    assert (dx is None) == (again[0] is None) == (not need_dx)
+    assert conv.bwd_kernels_per_call(x.shape, cout, stride=stride,
+                                     need_dx=need_dx) in (1, 2)
     # Deterministic: the same inputs give the same bytes.
     for a, e in zip((dx, dw, db), again):
-        assert torch.equal(a.view(torch.int32), e.view(torch.int32))
-    want_dx = conv.conv2d3x3_dgrad_plain(g, y, wt, x.shape, stride=stride, relu=relu)
+        if a is not None:
+            assert torch.equal(a.view(torch.int32), e.view(torch.int32))
     want_dw, want_db = conv.conv2d3x3_wgrad_plain(g, y, x, stride=stride, relu=relu)
-    # dx: float32 sums of <= 9*Cout = 72 terms in another order.
-    torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    if need_dx:
+        want_dx = conv.conv2d3x3_dgrad_plain(g, y, wt, x.shape, stride=stride,
+                                             relu=relu)
+        # dx: float32 sums of <= 9*Cout = 72 terms in another order.
+        torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
     # dw and db sum up to N*Ho*Wo = 2.6M float32 terms, in blocks, in
     # another order than cuBLAS's: each within 1e-5 of the sum of its terms'
     # absolute values (sum |x * g'|), where a wrong or missing tap would
@@ -84,6 +95,49 @@ def test_conv_bwd_kernels_match_plain(cuda_device, n, h, w, cin, cout, stride,
     gm = conv.relu_mask(g, y, relu).abs()
     terms_dw, terms_db = conv.conv2d3x3_wgrad_plain(gm, y, x.abs(), stride=stride,
                                                     relu=False)
+    assert ((dw - want_dw).abs() <= 1e-5 * terms_dw + 1e-6).all()
+    assert ((db - want_db).abs() <= 1e-5 * terms_db + 1e-6).all()
+
+
+def _bwd_bytes(device, case, relu=True, need_dx=True):
+    x, wt, y, g = _bwd_inputs(device, *case, relu)
+    got = conv.conv2d3x3_bwd(g, y, x, wt, stride=case[-1], relu=relu,
+                             need_dx=need_dx)
+    return [t.cpu().numpy().tobytes() for t in got if t is not None]
+
+
+@pytest.mark.cuda
+def test_conv_bwd_back_to_back_shapes_match_alone(cuda_device):
+    """Calls of different shapes back to back share the launch's ticket
+    counter, which the last block of each call sets back to zero: each
+    call's bytes equal those of the same call alone."""
+    cases = [(10, 512, 512, 8, 1, 1), (10, 64, 64, 6, 8, 2), (2, 11, 9, 5, 7, 1),
+             (10, 512, 512, 1, 4, 1), (2, 17, 13, 4, 6, 2)]
+    alone = {}
+    for c in cases:
+        alone[c] = _bwd_bytes(cuda_device, c, need_dx=c[3] != 1)
+        torch.cuda.synchronize()
+    for c in cases[::-1] + cases[1::2] + cases[::2]:
+        assert _bwd_bytes(cuda_device, c, need_dx=c[3] != 1) == alone[c], c
+    assert all(int(t) == 0 for t in conv._tickets.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_bwd_run_time_channels(cuda_device, stride, need_dx):
+    """Cin and Cout off the enhancer's layers take the kernel whose channel
+    counts are run-time values."""
+    x, wt, y, g = _bwd_inputs(cuda_device, 3, 37, 70, 5, 7, stride, True)
+    dx, dw, db = conv.conv2d3x3_bwd(g, y, x, wt, stride=stride, need_dx=need_dx)
+    torch.cuda.synchronize()
+    assert (dx is None) == (not need_dx)
+    if need_dx:
+        want_dx = conv.conv2d3x3_dgrad_plain(g, y, wt, x.shape, stride=stride)
+        torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    want_dw, want_db = conv.conv2d3x3_wgrad_plain(g, y, x, stride=stride)
+    terms_dw, terms_db = conv.conv2d3x3_wgrad_plain(
+        conv.relu_mask(g, y, True).abs(), y, x.abs(), stride=stride, relu=False)
     assert ((dw - want_dw).abs() <= 1e-5 * terms_dw + 1e-6).all()
     assert ((db - want_db).abs() <= 1e-5 * terms_db + 1e-6).all()
 
@@ -198,6 +252,44 @@ def test_lorenzo_inv_wide_rows(cuda_device):
     want = lorenzo3d.lorenzo_decode_plain(d, torch.tensor([1e-2], dtype=torch.float64,
                                                           device=cuda_device))
     assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+
+
+# Band edges of the inverse (bands of 8 rows): H one below and one above a
+# band, 2-D fields ([F, H, W], D = 1), F = 1, and int32 sums that wrap.
+INV_EDGE_SHAPES = [(2, 3, 7, 40), (2, 3, 9, 40), (1, 5, 17, 33), (3, 15, 600),
+                   (1, 1, 9, 513)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("shape", INV_EDGE_SHAPES)
+def test_lorenzo_inv_band_edges(cuda_device, shape, wrap):
+    rng = np.random.default_rng(sum(shape) + wrap)
+    hi = 2 ** 30 if wrap else 9
+    d = torch.from_numpy(rng.integers(-hi, hi, shape, dtype=np.int32)).to(cuda_device)
+    eb = torch.from_numpy(rng.uniform(1e-3, 0.5, shape[0])).to(cuda_device)
+    q = lorenzo3d.lorenzo_undelta_plain(d.cpu().long(), axes=range(1, d.ndim))
+    assert (q.abs() >= 2 ** 31).any() == wrap    # the int32 sums wrap
+    before = lorenzo3d.inv_launches
+    got = lorenzo3d.lorenzo3d_inv(d, eb)
+    want = lorenzo3d.lorenzo_decode_plain(d, eb)
+    torch.cuda.synchronize()
+    assert lorenzo3d.inv_launches == before + 1
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_lorenzo_inv_allocates_no_full_size_scratch(cuda_device):
+    """Beyond its output, the inverse allocates only the carry rows of its
+    bands (1/8 of delta), not a full-size int32 copy of delta."""
+    d = torch.ones((3, 50, 200, 200), dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lorenzo3d.lorenzo3d_inv(d, [1e-3] * 3)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - 8 * d.numel()
+    assert scratch <= 4 * d.numel() // 4
 
 
 @pytest.mark.cuda

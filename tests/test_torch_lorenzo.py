@@ -108,6 +108,44 @@ def test_undelta_and_decode_plain_byte_identical_to_reference(case):
     assert dec[~unpred].tobytes() == rec[~unpred].tobytes()
 
 
+def _band_undelta(d, bh):
+    """The inverse kernel's decomposition in plain torch, band by band: the
+    carry rows (each column's sum over the rows above a band, per plane),
+    then per band a walk over z that scans each column down the band, adds
+    the carry, keeps the running sums over z, and scans each row along x.
+    Sums in int64, wrapped to int32 at the end, as the kernel's unsigned
+    arithmetic wraps."""
+    f, nz, h, w = lorenzo3d._dims(d)
+    d = d.reshape(f, nz, h, w).long()
+    nb = -(-h // bh)
+    carry = torch.zeros((f, nz, nb, w), dtype=torch.long)
+    for b in range(1, nb):
+        carry[:, :, b] = carry[:, :, b - 1] + d[:, :, (b - 1) * bh:b * bh].sum(2)
+    q = torch.empty_like(d)
+    for b in range(nb):
+        y0, y1 = b * bh, min(h, (b + 1) * bh)
+        state = torch.zeros((f, y1 - y0, w), dtype=torch.long)
+        for z in range(nz):
+            state += carry[:, z, b, None] + torch.cumsum(d[:, z, y0:y1], dim=1)
+            q[:, z, y0:y1] = torch.cumsum(state, dim=2)
+    return ((q + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+@pytest.mark.parametrize("bh", [8, 3, 1, 20])
+@pytest.mark.parametrize("shape", [(1,) + SHAPE, (3,) + SHAPE, (3,) + SHAPE[1:]])
+def test_inverse_band_decomposition_matches_undelta(shape, bh):
+    """Bands of 8 rows (the kernel's, which do not divide 20), of 3, of one
+    row and of the whole plane give the prefix sums of the plain inverse,
+    with int32 sums that wrap."""
+    rng = np.random.default_rng(bh + len(shape))
+    d = torch.from_numpy(rng.integers(-2 ** 28, 2 ** 28, shape, dtype=np.int32))
+    want = lorenzo3d.lorenzo_undelta_plain(d, axes=range(1, d.ndim))
+    assert (lorenzo3d.lorenzo_undelta_plain(d.long(), axes=range(1, d.ndim)).abs()
+            >= 2 ** 31).any()
+    got = _band_undelta(d, bh).reshape(shape)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 def _field(dataset, rel_eb):
     """A snapshot field with a NaN and a CODE_CAP overflow at its bound."""
     name = ref_fields.DATASET_FIELDS[dataset][-1]
