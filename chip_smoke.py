@@ -33,8 +33,18 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 5. the Lorenzo path on the same snapshot: ``NeurLZ(compressor=
    "szlike-lorenzo")``, its conventional stage one batched group of three
    fields, the same checks on every field;
-6. a ``zfplike`` conventional round trip on one full field;
-7. the launch count of every kernel over each path, counted from 0 just
+6. the durable path on the same snapshot: the main path's configuration
+   with telemetry (spans, counters, learning traces with the sample-PSNR
+   hook) and faults (``train.precip`` injected, so ``precip`` degrades to
+   conv-only; the first ``decode.entry`` read injected and healed by a
+   retry); the entries written one by one into an fsync'ed ``NLZSTRM2``
+   container, opened lazily and decoded field by field; ``cloud`` and ``w``
+   must equal the main path's entries and decode bit for bit, ``precip``
+   its conventional reconstruction; then ``verify`` on the container and on
+   a copy with a flipped bit, and ``repair=True`` on a copy cut before its
+   footer; the Chrome trace goes to ``build/chip_smoke/durable_trace.json``;
+7. a ``zfplike`` conventional round trip on one full field;
+8. the launch count of every kernel over each path, counted from 0 just
    before the path: each kernel of a path must have launched in it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
@@ -730,12 +740,15 @@ def profile_conv_stage(x, dev) -> dict:
             "codec_s": codec_s}
 
 
-def main_path(dev, fields, epochs: int, report: dict) -> dict:
+def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
+    """The main path: ``(launches, kept)``, ``kept`` its entries (packed),
+    its decode and its stage times, which the durable path is held against."""
     import numpy as np
     import torch
     import repro_torch
     from repro_torch import kernels
     from repro_torch.compressors import szlike
+    from repro_torch.core import archive as arc_io
     from repro_torch.core import metrics, neurlz, online_trainer, regulation
 
     shape = next(iter(fields.values())).shape
@@ -758,6 +771,9 @@ def main_path(dev, fields, epochs: int, report: dict) -> dict:
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    kept = {"entries": {n: arc_io.dumps(e) for n, e in opened["fields"].items()},
+            "decoded": decoded, "compress_s": t_compress,
+            "timing": arc["timing"]}
 
     per_field = {}
     for name, x in fields.items():
@@ -810,7 +826,7 @@ def main_path(dev, fields, epochs: int, report: dict) -> dict:
     print("main_path", json.dumps({k: v for k, v in out.items()
                                    if k != "per_field"}))
     report["main_path"] = out
-    return launches
+    return launches, kept
 
 
 def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
@@ -881,6 +897,173 @@ def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
     print("lorenzo_path", json.dumps({k: v for k, v in out.items()
                                       if k != "per_field"}))
     report["lorenzo_path"] = out
+    return launches
+
+
+def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
+    """The main path's configuration with telemetry and faults, through a
+    durable container: ``train.precip`` is injected (``precip`` degrades to
+    conv-only), the first ``decode.entry`` read is injected and healed by a
+    retry.  ``main`` is what :func:`main_path` kept."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.compressors import szlike
+    from repro_torch.core import archive as arc_io
+    from repro_torch.core import regulation
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "hurricane_durable.nlzs"
+    raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
+    tel = repro_torch.Telemetry(repro_torch.TelemetryConfig(sample_psnr=True))
+    faults = repro_torch.FaultConfig(
+        injector=repro_torch.FaultInjector({"train.precip": 0,
+                                            "decode.entry": 0}),
+        retry=repro_torch.RetryPolicy())
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess = repro_torch.NeurLZ(epochs=epochs, device=dev, telemetry=tel,
+                              faults=faults)
+    arc = sess.compress(fields, rel_eb=1e-3)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+
+    # The entries, one record each, as a streaming writer appends them.
+    t0 = time.perf_counter()
+    meta = {"field_order": list(fields),
+            "shapes": {n: list(x.shape) for n, x in fields.items()},
+            "slice_axis": arc["slice_axis"], "compressor": arc["compressor"],
+            "aux": {n: list(e["aux"]) for n, e in arc["fields"].items()}}
+    app = arc_io.ArchiveAppender(path, durability="fsync", prelude=dict(meta))
+    for name in fields:
+        app.add_entry(name, arc["fields"][name])
+    nbytes = app.finalize({**meta, "timing": arc["timing"]})
+    t_write = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    opened = repro_torch.Archive.open(path, device=dev)
+    t_open = time.perf_counter() - t0
+    reads_at_open = len(opened.reader.entry_reads)
+    decoded = sess.decompress(opened)     # the session's telemetry and faults
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"durable path: {what}")
+
+    check(reads_at_open == 0, f"{reads_at_open} entry reads at open")
+    check(arc["timing"]["degraded_fields"] == ["precip"],
+          f"degraded {arc['timing']['degraded_fields']}")
+    per_field = {}
+    for name, x in fields.items():
+        e = opened.entry(name)
+        chk = regulation.check_bound(x, decoded[name], e["abs_eb"], "strict")
+        check(chk["ok"], f"{name}: max error {chk['max_abs_err']} > "
+                         f"{e['abs_eb']}")
+        if name == "precip":
+            check(e.get("degraded") == "injected", f"precip entry {e.get('degraded')}")
+            conv_rec = szlike.decompress(e["conv"], device=dev)
+            check(decoded[name].tobytes() == conv_rec.tobytes(),
+                  "precip does not decode to its conventional reconstruction")
+        else:
+            check(arc_io.dumps(e) == main["entries"][name],
+                  f"{name}: entry differs from the main path's")
+            check(decoded[name].tobytes() == main["decoded"][name].tobytes(),
+                  f"{name}: decode differs from the main path's")
+        per_field[name] = {"max_err_over_eb": chk["max_abs_err"] / e["abs_eb"],
+                           "degraded": e.get("degraded"),
+                           "bitrate": opened.bitrate(name)["bitrate"]}
+    counters = tel.counters
+    check(counters.get("faults.degraded") == 1
+          and counters.get("faults.retries") == 1, f"counters {counters}")
+
+    # Spans: the root's children cover it; one train span per field.
+    root = [s for s in tel.spans if s.name == "compress"]
+    check(len(root) == 1, f"{len(root)} compress spans")
+    root = root[0]
+    kids = [s for s in tel.spans if s.parent == root.id]
+    cover = sum(s.dur for s in kids) / root.dur
+    check(cover >= 0.9, f"the root's children cover {cover:.3f} of it")
+    trained = [n for n in fields if n != "precip"]
+    for name in trained:
+        recs = tel.trace(name)
+        check(len(recs) == epochs
+              and sum("sample_psnr" in r for r in recs) == epochs,
+              f"{name}: {len(recs)} learning-trace records")
+    trace_path = out_dir / "durable_trace.json"
+    tel.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    check([e["name"] for e in events].count("train") == len(fields),
+          "the Chrome trace lacks a train event per field")
+
+    # The container: verify it, then a copy with one flipped bit in w's
+    # record, then a copy cut before its footer.
+    t0 = time.perf_counter()
+    clean = opened.verify()
+    t_verify = time.perf_counter() - t0
+    check(clean["ok"] and clean["sealed"], f"verify: {clean}")
+    off, ln = opened.reader.entries["w"]
+    data = bytearray(path.read_bytes())
+    data[off + arc_io._V2_PREFIX + ln // 2] ^= 0x10
+    flipped = out_dir / "durable_flipped.nlzs"
+    flipped.write_bytes(bytes(data))
+    with repro_torch.open(flipped, device=dev) as bad:
+        rep = bad.verify()
+    check(not rep["ok"] and not rep["entries"]["w"]["ok"]
+          and rep["entries"]["w"]["offset"] == off
+          and all(rep["entries"][n]["ok"] for n in fields if n != "w"),
+          f"verify of a flipped bit in w at {off}: {rep}")
+    footer = max(o + arc_io._V2_PREFIX + n
+                 for o, n in opened.reader.entries.values())
+    torn = out_dir / "durable_torn.nlzs"
+    torn.write_bytes(path.read_bytes()[:footer])
+    t0 = time.perf_counter()
+    with repro_torch.Archive.open(torn, repair=True, device=dev) as salvaged:
+        t_salvage_open = time.perf_counter() - t0
+        check(salvaged.salvaged and salvaged.field_names == list(fields),
+              f"salvage of the torn copy: {salvaged.field_names}")
+        recovered = salvaged.decode_all()
+    t_salvage = time.perf_counter() - t0
+    for name in fields:
+        check(recovered[name].tobytes() == decoded[name].tobytes(),
+              f"{name}: the salvaged decode differs")
+    opened.close()
+    flipped.unlink()
+    torn.unlink()
+
+    timing = arc["timing"]
+    per_trained = {"durable": timing["train_s"] / len(trained),
+                   "main": main["timing"]["train_s"] / len(fields)}
+    out = {"compressor": "szlike", "epochs": epochs, "rel_eb": 1e-3,
+           "mode": "strict", "container_bytes": nbytes,
+           "compress_s": t_compress, "decode_s": t_decode,
+           "compress_MB_per_s": raw_mb / t_compress,
+           "decode_MB_per_s": raw_mb / t_decode,
+           "container_s": {"write_fsync": t_write, "open": t_open,
+                           "verify": t_verify,
+                           "salvage_open": t_salvage_open,
+                           "salvage_open_and_decode": t_salvage},
+           "stages": timing, "spans": tel.span_summary(),
+           "root_covered": cover, "counters": counters,
+           "telemetry_overhead": {
+               "train_s_per_trained_field": per_trained,
+               "train_ratio": per_trained["durable"] / per_trained["main"],
+               "conv_s_ratio": timing["conv_s"] / main["timing"]["conv_s"],
+               "compress_s": {"durable": t_compress,
+                              "main": main["compress_s"]}},
+           "sample_psnr_last": {n: tel.trace(n)[-1]["sample_psnr"]
+                                for n in trained},
+           "per_field": per_field, "launches": launches,
+           "verify_flipped": rep["entries"]["w"], "trace": str(trace_path)}
+    print("durable_spans", json.dumps(out["spans"]))
+    print("durable_path", json.dumps({k: v for k, v in out.items()
+                                      if k not in ("per_field", "spans")}))
+    report["durable_path"] = out
     return launches
 
 
@@ -959,14 +1142,18 @@ def main() -> int:
                  "fused_enhance": enhance_phase(dev, shape, report),
                  **lorenzo_phase(dev, fields, report)}
     if args.epochs < 100:
-        print(f"both paths: epochs cut to {args.epochs} of the paper's 100 "
+        print(f"every path: epochs cut to {args.epochs} of the paper's 100 "
               "(the shape is never cut)")
     # Each path runs with the counts set to 0 just before it; every kernel
     # of a path must have launched in it.
-    by_path = {"main": main_path(dev, fields, args.epochs, report),
-               "lorenzo": lorenzo_path(dev, fields, args.epochs, report)}
+    main_launches, main_kept = main_path(dev, fields, args.epochs, report)
+    by_path = {"main": main_launches,
+               "lorenzo": lorenzo_path(dev, fields, args.epochs, report),
+               "durable": durable_path(dev, fields, args.epochs, main_kept,
+                                       report)}
     path_kernels = {"main": ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance"),
-                    "lorenzo": tuple(kernels.KERNELS)}
+                    "lorenzo": tuple(kernels.KERNELS),
+                    "durable": ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")}
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")

@@ -7,7 +7,12 @@
     arc = sess.compress(fields, bounds={"w": repro_torch.ErrorBound(abs=0.1)},
                         rel_eb=1e-3)     # per-field bounds
     arc.save("snap.nlz")
-    out = repro_torch.Archive.open("snap.nlz").decode_all()
+    out = repro_torch.open("snap.nlz").decode_all()
+
+    tel = repro_torch.Telemetry()                    # spans, counters, traces
+    faults = repro_torch.FaultConfig(retry=repro_torch.RetryPolicy())
+    arc = repro_torch.NeurLZ(telemetry=tel, faults=faults).compress(
+        fields, rel_eb=1e-3)   # a failed field degrades to conv-only
 
 Configuration is split by concern as in the JAX package — ``ModelConfig``
 (the enhancer and its training), ``EngineConfig`` (which engine runs),
@@ -21,9 +26,11 @@ import dataclasses
 from typing import Mapping
 
 from . import device as device_lib
+from . import faults as faults_lib
 from .core import neurlz
 from .core.archive_api import Archive
 from .core.neurlz import NeurLZConfig
+from .obs import telemetry as obs
 from .roadmap import unported
 
 
@@ -50,8 +57,9 @@ class EngineConfig:
     engine: str = "serial"
     compressor: str = "szlike"          # szlike | szlike-lorenzo | zfplike
     conv_batch: bool = True             # batched conventional stage
-    telemetry: object | None = None
-    faults: object | None = None
+    telemetry: object | None = None     # repro_torch.Telemetry (None: off)
+    faults: object | None = None        # repro_torch.FaultConfig (None:
+    #   no injection, no retries, conv-only degradation on)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,18 +156,34 @@ class NeurLZ:
             collect_stats=collect_stats, device=self.device,
             init_params=init_params, batch_schedules=batch_schedules,
             bounds=bounds)
-        return Archive.from_dict(arc, device=self.device)
+        return self._adopt(Archive.from_dict(arc, device=self.device))
+
+    def _adopt(self, arc: Archive) -> Archive:
+        """Give ``arc`` this session's telemetry and faults where it has
+        none of its own."""
+        if self.engine.telemetry is not None and arc.telemetry is obs.NULL:
+            arc.telemetry = self.engine.telemetry
+        if (self.engine.faults is not None
+                and arc.faults is faults_lib.DEFAULT):
+            arc.faults = self.engine.faults
+        return arc
 
     def decompress(self, archive) -> dict:
         """Decode every field of an :class:`Archive` or archive dict on
-        this session's device."""
-        if isinstance(archive, Archive) and archive.device == self.device:
-            return archive.decode_all()
-        arc = archive.to_dict() if isinstance(archive, Archive) else archive
-        return Archive(arc, device=self.device).decode_all()
+        this session's device, with its telemetry and faults."""
+        if not (isinstance(archive, Archive) and archive.device == self.device):
+            arc = archive.to_dict() if isinstance(archive, Archive) else archive
+            archive = Archive(arc, device=self.device)
+        return self._adopt(archive).decode_all()
 
     def __repr__(self) -> str:
         return (f"NeurLZ(engine={self.engine.engine!r}, "
                 f"compressor={self.engine.compressor!r}, "
                 f"mode={self.regulation.mode!r}, epochs={self.model.epochs}, "
                 f"device={str(self.device)!r})")
+
+
+def open(path, *, repair: bool = False, device=None) -> Archive:  # noqa: A001
+    """:meth:`Archive.open`: ``repro_torch.open(path)`` decodes on ``cuda``
+    unless ``device`` says otherwise."""
+    return Archive.open(path, repair=repair, device=device)

@@ -1,49 +1,86 @@
-"""``Archive``: a handle over one compressed snapshot (whole-dict format).
+"""``Archive``: a handle over one compressed snapshot, whichever container
+holds it.
 
-``Archive.open(path)`` loads a whole-dict archive file — written by this
-package or by the JAX package, the bytes are the same format.
-``decode(name)`` decodes one field with its cross-field aux closure,
-``decode_all()`` every field, ``bitrate()`` gives the paper's accounting.
-The handle is also a read-only mapping over the archive dict's keys.
-Decoding runs on the handle's device (``cuda`` unless the caller asks for
-the CPU).
+One object wraps either a **whole-dict** archive (what the serial engine
+returns and :func:`repro_torch.core.archive.save` writes) or a **streaming**
+``NLZSTRM1``/``NLZSTRM2`` container (records written one entry at a time by
+:class:`~repro_torch.core.archive.ArchiveAppender`), and gives one surface:
+
+* ``Archive.open(path)`` sniffs the format.  A container opens lazily: only
+  its index footer is read, no entry until one is asked for.
+  ``repair=True`` rebuilds the index of a footerless or torn container by
+  scanning its records (:attr:`salvaged`, :attr:`damage`).
+* ``decode(name)`` reads that field's entry and its cross-field aux closure
+  and decodes only those; ``decode_all()`` decodes every field, on a
+  container one field at a time with only the live aux set resident.
+* ``bitrate()``, ``save(path)``, ``verify()``, ``to_dict()``.
+
+Files written by either package open in the other.  The handle is also a
+read-only mapping over the whole-dict archive's keys; on a container those
+values materialize on first access.  Decoding runs on the handle's device
+(``cuda`` unless the caller asks for the CPU).  ``telemetry`` traces decodes
+(``decode`` spans, the ``archive.entry_reads`` counter); ``faults`` retries
+transient entry reads (site ``"decode.entry"``).
 """
 from __future__ import annotations
 
 import os
+import shutil
 from collections.abc import Mapping
 
 import numpy as np
 
 from .. import compressors
 from .. import device as device_lib
+from .. import faults as faults_lib
+from ..obs import telemetry as obs_lib
 from ..roadmap import unported
 from . import archive as arc_io
 from . import neurlz
 
-_STREAM_MAGICS = (b"NLZSTRM1", b"NLZSTRM2")
+_TOP_KEYS = ("kind", "fields", "slice_axis", "compressor", "timing",
+             "bitrate")
 
 
 class Archive(Mapping):
-    def __init__(self, arc: dict, *, path: str | None = None, device=None):
-        self._arc = arc
+    def __init__(self, arc: dict | None = None, *, reader=None,
+                 path: str | None = None, device=None):
+        if (arc is None) == (reader is None):
+            raise ValueError("construct via Archive.open / Archive.from_dict")
+        self._arc = arc                    # whole-dict backend
+        self._reader = reader              # container backend (ArchiveReader)
         self._path = path
+        self._entries: dict[str, dict] = {}     # container: cached entries
+        self._bitrate: dict | None = None
         self.device = device_lib.resolve(device)
+        self.telemetry = obs_lib.NULL      # a Telemetry handle traces decodes
+        self.faults = faults_lib.DEFAULT   # a FaultConfig retries entry reads
+
+    # -- constructors -------------------------------------------------------
 
     @classmethod
-    def open(cls, source, *, device=None) -> "Archive":
-        """Load a whole-dict archive from a path or a binary file object."""
+    def open(cls, source, *, repair: bool = False, device=None) -> "Archive":
+        """Open either container format from a path or a binary file object.
+
+        A streaming container opens lazily (its footer only); a whole-dict
+        file is one msgpack document and loads whole.  ``repair=True``
+        (containers only) rebuilds the index by scanning the records, to
+        open a footerless or truncated container from a crashed run."""
+        device = device_lib.resolve(device)
         if isinstance(source, (str, bytes, os.PathLike)):
-            with open(source, "rb") as f:
-                data = f.read()
             path = os.fspath(source)
-        else:
-            source.seek(0)
-            data, path = source.read(), None
-        if data[:8] in _STREAM_MAGICS:
-            raise unported("the streaming container (NLZSTRM1/2)",
-                           "the streaming containers NLZSTRM1/2")
-        return cls(arc_io.loads(data), path=path, device=device)
+            if arc_io.is_streaming_archive(source):
+                return cls(reader=arc_io.ArchiveReader(source, repair=repair),
+                           path=path, device=device)
+            with open(source, "rb") as f:
+                return cls(arc_io.loads(f.read()), path=path, device=device)
+        source.seek(0)          # sniff from the start, wherever the caller
+        head = source.read(8)   # left the position
+        source.seek(0)
+        if arc_io.is_streaming_archive(head):
+            return cls(reader=arc_io.ArchiveReader(source, repair=repair),
+                       device=device)
+        return cls(arc_io.loads(source.read()), device=device)
 
     @classmethod
     def from_dict(cls, arc, *, device=None) -> "Archive":
@@ -52,56 +89,241 @@ class Archive(Mapping):
             return arc
         return cls(arc, device=device)
 
+    # -- introspection ------------------------------------------------------
+
+    @property
+    def streaming(self) -> bool:
+        """True when backed by a streaming container (lazy entries)."""
+        return self._reader is not None
+
     @property
     def path(self) -> str | None:
         return self._path
 
     @property
+    def reader(self):
+        """The :class:`~repro_torch.core.archive.ArchiveReader` of a
+        container (None for a whole-dict archive); its ``entry_reads``
+        lists every entry record read."""
+        return self._reader
+
+    @property
+    def meta(self) -> dict:
+        if self.streaming:
+            return self._reader.meta
+        return {k: self._arc[k] for k in ("slice_axis", "compressor")}
+
+    @property
+    def salvaged(self) -> bool:
+        """True when opened with ``repair=True`` on an unsealed container."""
+        return bool(self._reader is not None and self._reader.salvaged)
+
+    @property
+    def damage(self) -> list[dict]:
+        """One ``{"offset", "error"}`` per unreadable stretch a repair scan
+        skipped (empty otherwise)."""
+        return [] if self._reader is None else list(self._reader.damage)
+
+    def verify(self) -> dict:
+        """Read every entry again through the checksum path:
+        ``{"version", "sealed", "ok", "entries": {name: {"offset", "ok",
+        "error"}}}``.  A whole-dict archive has no per-record checksums and
+        reports ok (its msgpack load already checked the framing)."""
+        if not self.streaming:
+            return {"version": 0, "sealed": True, "ok": True,
+                    "entries": {n: {"offset": None, "ok": True, "error": None}
+                                for n in self.field_names}}
+        source = self._path if self._path is not None else self._reader._f
+        return arc_io.verify_container(source)
+
+    @property
     def field_names(self) -> list[str]:
+        """Entry names in snapshot order (the footer's, or the prelude's on
+        a salvaged container, restricted to the entries it holds)."""
+        if self.streaming:
+            order = self._reader.meta.get("field_order")
+            if order is None:       # salvaged without a prelude: record order
+                return list(self._reader.entries)
+            if self.salvaged:       # the prelude lists the planned order
+                return [n for n in order if n in self._reader.entries]
+            return list(order)
         return list(self._arc["fields"])
 
-    def entry(self, name: str) -> dict:
-        return self._arc["fields"][name]
+    @property
+    def block_manifest(self) -> dict:
+        """Reassembly manifest of fields that a streaming source split into
+        blocks: not ported with that source."""
+        raise unported("block_manifest", "streaming")
 
-    def decode(self, name: str) -> np.ndarray:
-        """Decode one field: its entry plus the conventional payloads of
-        its aux fields."""
-        e = self.entry(name)
-        recs = compressors.decompress_many(
-            {n: self.entry(n)["conv"] for n in dict.fromkeys([name, *e["aux"]])},
-            device=self.device)
-        return neurlz.decode_field_entry(e, recs[name],
-                                         [recs[a] for a in e["aux"]],
-                                         self._arc["slice_axis"], self.device)
+    def _check_unblocked(self) -> None:
+        """Refuse a container whose fields were split into blocks: joining
+        them back comes with the streaming source."""
+        if self.streaming and self._reader.meta.get("blocks"):
+            raise unported("a container of blocked fields", "streaming")
+
+    def entry(self, name: str) -> dict:
+        """One field's raw entry (on a container: read once, then cached)."""
+        if not self.streaming:
+            return self._arc["fields"][name]
+        if name not in self._entries:
+            self._entries[name] = self._read_entry(name)
+            self.telemetry.counter("archive.entry_reads").add()
+        return self._entries[name]
+
+    def _read_entry(self, name: str) -> dict:
+        """An entry read through the fault layer: probes the injection site
+        ``"decode.entry"`` and retries under the configured policy."""
+        return self.faults.run(lambda: self._reader.read_entry(name),
+                               site="decode.entry", tel=self.telemetry)
+
+    def _entry_transient(self, name: str) -> dict:
+        """An entry read without caching it (a cached copy is reused), so a
+        sweep over a large container leaves no payload resident."""
+        if not self.streaming or name in self._entries:
+            return self.entry(name)
+        self.telemetry.counter("archive.entry_reads").add()
+        return self._read_entry(name)
+
+    # -- decode -------------------------------------------------------------
+
+    def decode(self, name: str, roi=None) -> np.ndarray:
+        """Decode one field: its entry plus the conventional payloads of its
+        aux fields, read transiently from a container (nothing else is
+        read)."""
+        if roi is not None:
+            raise unported("roi=", "streaming")
+        self._check_unblocked()
+        return self._decode(name, {})[0]
+
+    def _decode(self, name: str, recs: dict) -> tuple[np.ndarray, list]:
+        """Decode ``name``; the conventional reconstructions of it and of its
+        aux fields that ``recs`` lacks are decoded in one call and added to
+        ``recs``.  Returns the field and its aux names."""
+        with self.telemetry.span("decode", field=name):
+            e = self._entry_transient(name)
+            due = {}
+            for n in dict.fromkeys([name, *e["aux"]]):
+                if n not in recs:
+                    due[n] = (e if n == name else self._entry_transient(n))["conv"]
+            recs.update(compressors.decompress_many(due, device=self.device))
+            out = neurlz.decode_field_entry(e, recs[name],
+                                            [recs[a] for a in e["aux"]],
+                                            self["slice_axis"], self.device)
+        return out, e["aux"]
 
     def decode_all(self) -> dict[str, np.ndarray]:
-        return neurlz.decompress(self._arc, self.device)
+        """Decode every field.  A container decodes one field at a time
+        through transient reads, keeping only the reconstructions a later
+        field still needs as aux (the footer's ``aux`` map counts them)."""
+        if not self.streaming:
+            return neurlz.decompress(self._arc, self.device)
+        self._check_unblocked()
+        names = self.field_names
+        aux_map = self._reader.meta.get("aux", {})
+        refs = {n: 1 for n in names}
+        for n in names:
+            for a in aux_map.get(n, ()):
+                refs[a] = refs.get(a, 0) + 1
+        recs: dict[str, np.ndarray] = {}
+        out = {}
+        for name in names:
+            out[name], aux = self._decode(name, recs)
+            for m in (name, *aux):
+                refs[m] = refs.get(m, 1) - 1
+                if refs[m] <= 0:
+                    recs.pop(m, None)
+        return out
+
+    # -- accounting / persistence ------------------------------------------
+
+    def _num_points(self, name: str) -> int:
+        if self.streaming:
+            return int(np.prod(self._reader.meta["shapes"][name]))
+        return int(np.prod(self._arc["fields"][name]["conv"]["shape"]))
 
     def bitrate(self, name: str | None = None) -> dict:
-        """Paper bit-rate accounting of one field, or of all."""
-        table = self._arc.get("bitrate")
-        if table is None:
-            table = {n: neurlz.field_bitrate(
-                self._arc, n, int(np.prod(self.entry(n)["conv"]["shape"])))
-                for n in self.field_names}
-        return table if name is None else table[name]
+        """Paper bit-rate accounting of one field, or of all.  On a
+        container each entry is read transiently, so nothing stays
+        resident."""
+        have_table = self._arc is not None and "bitrate" in self._arc
+        if name is not None:
+            if have_table:
+                return self._arc["bitrate"][name]
+            view = {"fields": {name: self._entry_transient(name)}}
+            return neurlz.field_bitrate(view, name, self._num_points(name))
+        if self._bitrate is None:
+            self._bitrate = (self._arc["bitrate"] if have_table else
+                             {n: self.bitrate(n) for n in self.field_names})
+        return self._bitrate
 
     def to_dict(self) -> dict:
+        """The whole-dict archive (on a container: every entry read, in the
+        footer's field order, packing to the in-memory engine's bytes)."""
+        if self._arc is None:
+            self._arc = neurlz.assemble_streaming_archive(self._reader)
         return self._arc
 
     def save(self, path) -> int:
-        """Write the whole-dict archive file; returns bytes written."""
-        return arc_io.save(os.fspath(path), self._arc)
+        """Write the archive to ``path`` in its own container format;
+        returns bytes written.  A streaming container is copied byte for
+        byte (no entry is decoded)."""
+        path = os.fspath(path)
+        if not self.streaming:
+            return arc_io.save(path, self._arc)
+        if self._path is not None:
+            shutil.copyfile(self._path, path)
+            return os.path.getsize(path)
+        f = self._reader._f
+        pos = f.tell()
+        f.seek(0)
+        with open(path, "wb") as out:
+            shutil.copyfileobj(f, out)
+        f.seek(pos)
+        return os.path.getsize(path)
+
+    def close(self) -> None:
+        if self._reader is not None:
+            self._reader.close()
+
+    def __del__(self):
+        # Releases the container's file where a caller rebinds handles
+        # without closing them; the context manager is the usual form.
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def __enter__(self) -> "Archive":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- read-only Mapping over the whole-dict archive keys -----------------
 
     def __getitem__(self, key):
-        return self._arc[key]
+        if not self.streaming:
+            return self._arc[key]
+        if key == "kind":
+            return "neurlz"
+        if key in ("slice_axis", "compressor"):
+            return self._reader.meta[key]
+        if key == "timing":
+            return self._reader.meta.get("timing", {})
+        if key == "fields":
+            return self.to_dict()["fields"]
+        if key == "bitrate":
+            return self.bitrate()
+        raise KeyError(key)
 
     def __iter__(self):
-        return iter(self._arc)
+        return iter(_TOP_KEYS if self.streaming else self._arc)
 
     def __len__(self) -> int:
-        return len(self._arc)
+        return len(_TOP_KEYS) if self.streaming else len(self._arc)
 
     def __repr__(self) -> str:
+        kind = "streaming" if self.streaming else "dict"
         where = f" path={self._path!r}" if self._path else ""
-        return f"<Archive{where} fields={len(self.field_names)} device={self.device}>"
+        return (f"<Archive {kind}{where} fields={len(self.field_names)} "
+                f"device={self.device}>")

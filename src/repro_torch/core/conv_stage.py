@@ -10,7 +10,10 @@ per-field path, so archives do not depend on the grouping.  For
 
 :class:`ConvStats` counts how the work was dispatched (groups, batched
 calls, per-field calls); the engine reports it under
-``timing["conv_stage"]``.
+``timing["conv_stage"]``.  With telemetry, one ``conv`` span covers a run
+(closed after the device has finished), and the counters ``conv.groups``,
+``conv.dispatches``, ``conv.batched_fields`` and ``conv.fallback_fields``
+and the gauge ``conv.group_size`` follow the same counts.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from .. import device as device_lib
 from ..compressors import registry
+from ..obs import telemetry as obs
 
 
 @dataclasses.dataclass
@@ -60,7 +64,7 @@ class ConvStage:
 
     def __init__(self, compressor: str, rel_eb: float | None = None,
                  abs_eb: float | None = None, *, batch: bool = True,
-                 bounds: Mapping | None = None, device=None):
+                 bounds: Mapping | None = None, device=None, telemetry=None):
         self.entry = registry.get(compressor)   # unknown name -> ValueError
         self.rel_eb = rel_eb
         self.abs_eb = abs_eb
@@ -69,6 +73,7 @@ class ConvStage:
         self.bounds = dict(bounds) if bounds else None
         self.device = device_lib.resolve(device)
         self.stats = ConvStats()
+        self.tel = telemetry if telemetry is not None else obs.NULL
 
     def bound_for(self, name: str) -> tuple[float | None, float | None]:
         """``(rel_eb, abs_eb)`` handed to the compressor for one field (abs
@@ -89,25 +94,35 @@ class ConvStage:
         out: dict[str, tuple[dict, np.ndarray]] = {}
         arrs = {n: np.asarray(x) for n, x in fields.items()}
         metas = {n: (a.shape, a.dtype) for n, a in arrs.items()}
-        for group in self.plan(metas):
-            self.stats.groups += 1
-            rel, ab = self.bound_for(group[0])   # one spec per group
-            if (self.batch and len(group) > 1
-                    and self.entry.batch_supports(metas[group[0]][1])):
-                results = self.entry.compress_batched(
-                    [arrs[n] for n in group], rel, abs_eb=ab,
-                    device=self.device)
-                self.stats.calls += 1
-                self.stats.batched_fields += len(group)
-                out.update(zip(group, results))
-            else:
-                for n in group:
-                    out[n] = self.entry.compress(arrs[n], rel, abs_eb=ab,
-                                                 device=self.device)
+        tel = self.tel
+        with tel.span("conv", fields=len(arrs)) as sp:
+            calls0 = self.stats.calls
+            for group in self.plan(metas):
+                self.stats.groups += 1
+                tel.counter("conv.groups").add()
+                tel.gauge("conv.group_size").set(len(group))
+                rel, ab = self.bound_for(group[0])   # one spec per group
+                if (self.batch and len(group) > 1
+                        and self.entry.batch_supports(metas[group[0]][1])):
+                    results = self.entry.compress_batched(
+                        [arrs[n] for n in group], rel, abs_eb=ab,
+                        device=self.device)
                     self.stats.calls += 1
-                    self.stats.fallback_fields += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                    self.stats.batched_fields += len(group)
+                    tel.counter("conv.dispatches").add()
+                    tel.counter("conv.batched_fields").add(len(group))
+                    out.update(zip(group, results))
+                else:
+                    for n in group:
+                        out[n] = self.entry.compress(arrs[n], rel, abs_eb=ab,
+                                                     device=self.device)
+                        self.stats.calls += 1
+                        self.stats.fallback_fields += 1
+                        tel.counter("conv.dispatches").add()
+                        tel.counter("conv.fallback_fields").add()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            sp.set(calls=self.stats.calls - calls0)
         self.stats.fields += len(arrs)
         self.stats.conv_s += time.perf_counter() - t0
         return {n: out[n] for n in arrs}

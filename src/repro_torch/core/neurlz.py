@@ -18,11 +18,20 @@ in one stacked call) → enhancer inference → the same
 ``fused_enhance`` arithmetic with ``orig := X'`` → the stored outliers
 patched back to ``X'``.  Encoder and decoder run one arithmetic on one
 device, so the decoder reproduces the encoder's final field bit for bit.
+
+A field whose enhancer fails — a non-finite loss, an injected fault, host
+or CUDA out-of-memory — degrades to a conv-only entry that still holds its
+bound, and the rest of the snapshot goes on (``NeurLZConfig.faults``,
+:mod:`repro_torch.faults`).  ``NeurLZConfig.telemetry`` records the spans
+``compress`` (root), ``conv``, ``train`` (one per field) and ``assemble``,
+the conv and fault counters, and per-epoch learning traces
+(:mod:`repro_torch.obs`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import traceback
 from typing import Mapping
 
 import numpy as np
@@ -30,8 +39,10 @@ import torch
 
 from .. import compressors
 from .. import device as device_lib
+from .. import faults as faults_lib
 from ..compressors import outliers as outlier_codec
 from ..compressors import registry
+from ..obs import telemetry as obs_lib
 from ..roadmap import unported
 from . import archive as arc_io
 from . import bounds as bounds_lib
@@ -55,8 +66,10 @@ class NeurLZConfig:
     widths: tuple = (4, 4, 6, 6, 8)
     engine: str = "serial"
     conv_batch: bool = True             # batched conventional stage
-    telemetry: object | None = None
-    faults: object | None = None
+    telemetry: object | None = None     # repro_torch.obs.Telemetry (None:
+    #   disabled, every instrumentation point a shared no-op singleton)
+    faults: object | None = None        # repro_torch.faults.FaultConfig
+    #   (None: no injection, no retries, conv-only degradation on)
 
     def check(self) -> None:
         """Raise for settings the port does not run yet."""
@@ -69,8 +82,6 @@ class NeurLZConfig:
                 raise ValueError(f"unknown engine {self.engine!r}")
             raise unported(f"engine={self.engine!r}", item)
         registry.get(self.compressor)   # an unknown name raises
-        if self.telemetry is not None or self.faults is not None:
-            raise unported("telemetry/faults", "obs/faults")
         if not self.learn_residual:
             raise unported("learn_residual=False", "the rest")
 
@@ -139,6 +150,48 @@ def enhance_and_mask(x: np.ndarray, rec: np.ndarray, resid_norm: torch.Tensor,
                                     mode=config.mode)
 
 
+def pack_degraded_entry(config: NeurLZConfig, conv_arc: dict, eb: float,
+                        reason: str) -> dict:
+    """Conv-only entry of a field whose enhancer failed.  No weights: decode
+    returns the conventional reconstruction, which already holds ``abs_eb``.
+    ``reason`` is :func:`repro_torch.faults.degrade_reason`'s string."""
+    return {
+        "conv": conv_arc,
+        "stats": [],
+        "aux": [],
+        "mode": config.mode,
+        "abs_eb": eb,
+        "learn_residual": config.learn_residual,
+        "loss_history": [],
+        "degraded": reason,
+    }
+
+
+def history_is_finite(history) -> bool:
+    """False when the training loss went NaN or infinite: the weights are
+    poisoned from that epoch on, so the field degrades."""
+    if not history:
+        return True
+    return bool(np.all(np.isfinite(np.asarray(history, dtype=np.float64))))
+
+
+def field_vrange(x: np.ndarray) -> float:
+    """Finite value range of a field (0.0 when nothing is finite): what the
+    learning trace's PSNR predictions are computed against."""
+    v = np.asarray(x, dtype=np.float64)
+    v = v[np.isfinite(v)]
+    if v.size == 0:
+        return 0.0
+    return float(v.max() - v.min())
+
+
+def entry_base_bytes(entry: dict) -> float:
+    """Conventional payload + weight bytes of a packed entry: the
+    epoch-independent part of the learning trace's bit-rate prediction."""
+    return (compressors.archive_nbytes(entry["conv"])
+            + (entry["weights"]["nbytes"] if "weights" in entry else 0))
+
+
 def assemble_archive(fields: Mapping, out_fields: dict, config: NeurLZConfig,
                      timing: dict) -> dict:
     arc = {
@@ -151,6 +204,100 @@ def assemble_archive(fields: Mapping, out_fields: dict, config: NeurLZConfig,
     arc["bitrate"] = {n: field_bitrate(arc, n, int(np.asarray(fields[n]).size))
                       for n in fields}
     return arc
+
+
+def assemble_streaming_archive(reader: arc_io.ArchiveReader) -> dict:
+    """A streaming container as the whole-dict archive: entries in the
+    snapshot's field order (from the footer), so the result packs to the
+    bytes the in-memory engine gives."""
+    meta = reader.meta
+    fields = {name: reader.read_entry(name) for name in meta["field_order"]}
+    arc = {
+        "kind": "neurlz",
+        "fields": fields,
+        "slice_axis": meta["slice_axis"],
+        "compressor": meta["compressor"],
+        "timing": meta.get("timing", {}),
+    }
+    arc["bitrate"] = {
+        n: field_bitrate(arc, n, int(np.prod(meta["shapes"][n])))
+        for n in fields}
+    return arc
+
+
+def _sample_psnr_hook(tel, x, rec, inputs, eb, config, device):
+    """Per-epoch measured PSNR on a few sampled slices (telemetry
+    ``sample_psnr``): after every epoch, predict their residual and score
+    the enhancement before the strict patch — ``fused_enhance`` with
+    ``orig := rec``, equal to ``enhance`` — against the original.  It reads the model under
+    ``no_grad`` and draws no random numbers, so training is unchanged.
+    Returns ``(on_epoch, samples)``, ``(None, None)`` when disabled."""
+    if not (tel.enabled and tel.config.sample_psnr):
+        return None, None
+    n = inputs.shape[0]
+    k = max(1, min(int(tel.config.sample_slices), n))
+    idx = np.linspace(0, n - 1, k).astype(int)
+    x_s = np.moveaxis(np.asarray(x), config.slice_axis, 0)[idx]
+    rec_s = _to_device(np.moveaxis(np.asarray(rec), config.slice_axis, 0)[idx],
+                       device)
+    inp_s = _to_device(inputs[idx], device)
+    samples: list[float] = []
+
+    def on_epoch(epoch, model, loss):
+        resid = online_trainer.predict_residual(model, inp_s).contiguous()
+        enh, _ = regulation.fused_enhance(rec_s, resid, rec_s, eb,
+                                          mode="relaxed")
+        samples.append(metrics.psnr(x_s, enh.cpu().numpy()))
+
+    return on_epoch, samples
+
+
+def _enhance_field(x, rec, aux, aux_names, eb, conv_arc, fcfg, net_cfg, init,
+                   schedule, device, tel, fc, collect_stats, t):
+    """Train one field's enhancer, predict, enhance and pack its entry:
+    ``(entry, history, samples)``, ``entry`` None when the loss went
+    non-finite and ``fc`` degrades.  Every device tensor of the field is
+    local to this frame, so a failure releases them with it."""
+    tcfg = fcfg.train_config()
+    ts = time.perf_counter()
+    inputs, targets, stats = online_trainer.make_dataset(
+        rec, x, eb, aux=aux, slice_axis=fcfg.slice_axis)
+    params = skipping_dnn.params_from_jax(init) if init is not None else None
+    model = skipping_dnn.SkippingDNN(
+        net_cfg, params, generator=torch.Generator().manual_seed(tcfg.seed),
+        device=device)
+    on_epoch, samples = _sample_psnr_hook(tel, x, rec, inputs, eb, fcfg,
+                                          device)
+    history = online_trainer.train(model, inputs, targets, tcfg,
+                                   schedule=schedule, on_epoch=on_epoch)
+    _sync(device)
+    t["train_s"] += time.perf_counter() - ts
+    if fc.degrade and not history_is_finite(history):
+        return None, history, samples
+
+    ts = time.perf_counter()
+    resid = online_trainer.predict_residual(model, inputs)
+    _sync(device)
+    t["predict_s"] += time.perf_counter() - ts
+
+    ts = time.perf_counter()
+    entry = pack_entry(fcfg, conv_arc, model.tree(), stats, aux_names, eb,
+                       net_cfg, history, collect_stats)
+    t["pack_s"] += time.perf_counter() - ts
+
+    ts = time.perf_counter()
+    _, mask = enhance_and_mask(x, rec, resid, eb, fcfg)
+    if mask is not None:
+        mask = mask.cpu().numpy()   # waits for the enhance kernel
+    elif tel.enabled:
+        _sync(device)   # so the field's span closes after its enhance kernel
+    t["enhance_s"] += time.perf_counter() - ts
+
+    ts = time.perf_counter()
+    if mask is not None:
+        entry["outliers"] = outlier_codec.encode_outliers(mask)
+    t["pack_s"] += time.perf_counter() - ts
+    return entry, history, samples
 
 
 def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
@@ -168,88 +315,85 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
     batch order, e.g. to the JAX package's."""
     config.check()
     device = device_lib.resolve(device)
+    tel = obs_lib.of(config)
+    fc = faults_lib.of(config)
     init_params = init_params or {}
     batch_schedules = batch_schedules or {}
     t = {k: 0.0 for k in ("conv_s", "train_s", "predict_s", "enhance_s",
                           "pack_s")}
     t0 = time.perf_counter()
+    with tel.span("compress", root=True, engine="serial", fields=len(fields)):
+        resolved = (bounds_lib.resolve_bounds(list(fields), bounds, rel_eb,
+                                              abs_eb, default_mode=config.mode)
+                    if bounds is not None else None)
+        stage = conv_stage_lib.ConvStage(config.compressor, rel_eb, abs_eb,
+                                         batch=config.conv_batch,
+                                         bounds=resolved, device=device,
+                                         telemetry=tel)
+        conv = stage.run(fields)
+        t["conv_s"] = time.perf_counter() - t0
 
-    resolved = (bounds_lib.resolve_bounds(list(fields), bounds, rel_eb, abs_eb,
-                                          default_mode=config.mode)
-                if bounds is not None else None)
-    stage = conv_stage_lib.ConvStage(config.compressor, rel_eb, abs_eb,
-                                     batch=config.conv_batch, bounds=resolved,
-                                     device=device)
-    conv = stage.run(fields)
-    t["conv_s"] = time.perf_counter() - t0
+        # A reconstruction stays resident until its last consumer (its own
+        # entry and every field that lists it as an aux channel) is done.
+        conv_arcs = {n: arc for n, (arc, _) in conv.items()}
+        recs = {n: rec for n, (_, rec) in conv.items()}
+        del conv
+        rec_refs = {n: 1 for n in fields}
+        for n in fields:
+            for a in _aux_names(config, n, fields):
+                rec_refs[a] += 1
 
-    # A reconstruction stays resident until its last consumer (its own
-    # entry and every field that lists it as an aux channel) is done.
-    conv_arcs = {n: arc for n, (arc, _) in conv.items()}
-    recs = {n: rec for n, (_, rec) in conv.items()}
-    del conv
-    rec_refs = {n: 1 for n in fields}
-    for n in fields:
-        for a in _aux_names(config, n, fields):
-            rec_refs[a] += 1
+        out_fields = {}
+        degraded: list[str] = []
+        for name, x in fields.items():
+            x = np.asarray(x)
+            conv_arc = conv_arcs[name]
+            eb = conv_arc["abs_eb"]
+            fcfg = field_config(config,
+                                resolved[name].mode if resolved else None)
+            aux_names = _aux_names(fcfg, name, fields)
+            net_cfg = fcfg.net_config(1 + len(aux_names))
 
-    out_fields = {}
-    for name, x in fields.items():
-        x = np.asarray(x)
-        conv_arc = conv_arcs[name]
-        eb = conv_arc["abs_eb"]
-        fcfg = field_config(config, resolved[name].mode if resolved else None)
-        aux_names = _aux_names(fcfg, name, fields)
-        aux = [recs[a] for a in aux_names]
-        net_cfg = fcfg.net_config(1 + len(aux))
-        tcfg = fcfg.train_config()
+            entry, reason = None, None
+            with tel.span("train", field=name):
+                try:
+                    fc.check(f"train.{name}")
+                    entry, history, samples = _enhance_field(
+                        x, recs[name], [recs[a] for a in aux_names],
+                        aux_names, eb, conv_arc, fcfg, net_cfg,
+                        init_params.get(name), batch_schedules.get(name),
+                        device, tel, fc, collect_stats, t)
+                    if entry is None:
+                        reason = faults_lib.degrade_reason()
+                except Exception as exc:
+                    if not (fc.degrade and faults_lib.is_degradable(exc)):
+                        raise
+                    reason = faults_lib.degrade_reason(exc)
+                    # The traceback's frames hold the failed field's device
+                    # tensors (inputs, targets, model, Adam's state): let
+                    # them go before the next field allocates its own.
+                    traceback.clear_frames(exc.__traceback__)
+            if reason is not None:
+                entry = pack_degraded_entry(fcfg, conv_arc, eb, reason)
+                degraded.append(name)
+                tel.counter("faults.degraded").add()
+            elif tel.enabled and tel.config.learning_traces:
+                obs_lib.learning_trace(
+                    tel, name, history, eb=eb, vrange=field_vrange(x),
+                    base_bytes=entry_base_bytes(entry), n_points=int(x.size),
+                    mode=fcfg.mode, sample_psnr=samples)
+            out_fields[name] = entry
+            for m in (name, *aux_names):
+                rec_refs[m] -= 1
+                if rec_refs[m] <= 0:
+                    recs.pop(m, None)
 
-        ts = time.perf_counter()
-        inputs, targets, stats = online_trainer.make_dataset(
-            recs[name], x, eb, aux=aux, slice_axis=config.slice_axis)
-        params = (skipping_dnn.params_from_jax(init_params[name])
-                  if name in init_params else None)
-        model = skipping_dnn.SkippingDNN(
-            net_cfg, params, generator=torch.Generator().manual_seed(tcfg.seed),
-            device=device)
-        history = online_trainer.train(model, inputs, targets, tcfg,
-                                       schedule=batch_schedules.get(name))
-        if not np.all(np.isfinite(history)):
-            raise FloatingPointError(
-                f"enhancer training of {name!r} diverged (non-finite loss); "
-                "conv-only degradation is not ported yet (ROADMAP.md, "
-                "'Modules still to port': obs/faults)")
-        _sync(device)
-        t["train_s"] += time.perf_counter() - ts
-
-        ts = time.perf_counter()
-        resid = online_trainer.predict_residual(model, inputs)
-        _sync(device)
-        t["predict_s"] += time.perf_counter() - ts
-
-        ts = time.perf_counter()
-        entry = pack_entry(fcfg, conv_arc, model.tree(), stats, aux_names,
-                           eb, net_cfg, history, collect_stats)
-        t["pack_s"] += time.perf_counter() - ts
-
-        ts = time.perf_counter()
-        _, mask = enhance_and_mask(x, recs[name], resid, eb, fcfg)
-        mask = None if mask is None else mask.cpu().numpy()
-        t["enhance_s"] += time.perf_counter() - ts
-
-        ts = time.perf_counter()
-        if mask is not None:
-            entry["outliers"] = outlier_codec.encode_outliers(mask)
-        t["pack_s"] += time.perf_counter() - ts
-        out_fields[name] = entry
-        for m in (name, *aux_names):
-            rec_refs[m] -= 1
-            if rec_refs[m] <= 0:
-                recs.pop(m, None)
-
-    timing = {"total_s": time.perf_counter() - t0, **t,
-              "conv_stage": stage.stats.as_dict(), "device": str(device)}
-    return assemble_archive(fields, out_fields, config, timing)
+        timing = obs_lib.build_timing(
+            tel, total_s=time.perf_counter() - t0, conv_s=t.pop("conv_s"),
+            train_s=t.pop("train_s"), conv_stage=stage.stats.as_dict(),
+            degraded_fields=degraded, **t, device=str(device))
+        with tel.span("assemble"):
+            return assemble_archive(fields, out_fields, config, timing)
 
 
 def decode_entry_net(entry: dict, device) -> skipping_dnn.SkippingDNN:

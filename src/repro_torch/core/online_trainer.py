@@ -72,11 +72,14 @@ def batch_loss(model: SkippingDNN, xb: torch.Tensor, yb: torch.Tensor
 
 
 def train(model: SkippingDNN, inputs, targets, cfg: TrainConfig, *,
-          schedule=None) -> list[float]:
+          schedule=None, on_epoch=None) -> list[float]:
     """Train ``model`` in place for ``cfg.epochs``; returns the per-epoch
     mean loss.  ``inputs``/``targets`` are host arrays or tensors; they move
     to the model's device once.  ``schedule`` optionally fixes the batch
-    indices, ``[epochs, steps, batch]``."""
+    indices, ``[epochs, steps, batch]``.  ``on_epoch`` is an optional host
+    callback ``(epoch, model, loss)`` after every epoch (the telemetry
+    sample-PSNR hook); the epoch's mean loss is read on the host anyway, so
+    it adds no wait for the device."""
     device = next(model.parameters()).device
     xs = torch.as_tensor(inputs, device=device)
     ys = torch.as_tensor(targets, device=device)
@@ -105,6 +108,8 @@ def train(model: SkippingDNN, inputs, targets, cfg: TrainConfig, *,
             opt.step(grads, lr=lr_fn(e * steps + s))
             losses[s] = loss.detach()
         history.append(float(losses.mean()))
+        if on_epoch is not None:
+            on_epoch(e, model, history[-1])
     return history
 
 

@@ -323,3 +323,74 @@ def test_lorenzo_session_round_trip(cuda_device):
         resid = online_trainer.predict_residual(model, inputs)
         final, _ = neurlz.enhance_and_mask(x, rec, resid, e["abs_eb"], sess.config)
         assert final.cpu().numpy().tobytes() == dec[name].tobytes()
+
+
+@pytest.mark.cuda
+def test_out_of_memory_degrades_and_releases_the_field(cuda_device, monkeypatch):
+    """A CUDA out-of-memory in one field's training degrades that field to
+    conv-only (``error:OutOfMemoryError``); its device tensors are released
+    before the next field trains, which then trains as usual."""
+    import repro_torch
+    from repro_torch.core import online_trainer
+    from repro_torch.data import fields as fields_lib
+
+    fields = fields_lib.make_fields("hurricane", (6, 40, 36), seed=2)
+    real_train = online_trainer.train
+    held = []    # memory_allocated() as each field's training starts
+
+    def train(model, inputs, targets, cfg, **kw):
+        held.append(torch.cuda.memory_allocated(cuda_device))
+        if len(held) == 1:
+            # What a failed field pins: its inputs and targets on the card.
+            xs = torch.as_tensor(inputs, device=cuda_device)
+            ys = torch.as_tensor(targets, device=cuda_device)
+            big = torch.empty(64 << 20, dtype=torch.uint8, device=cuda_device)
+            assert xs.numel() + ys.numel() + big.numel() > 0
+            raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+        return real_train(model, inputs, targets, cfg, **kw)
+
+    monkeypatch.setattr(online_trainer, "train", train)
+    arc = repro_torch.NeurLZ(epochs=2, device=cuda_device).compress(
+        fields, rel_eb=1e-3)
+    first = list(fields)[0]
+    assert arc["fields"][first]["degraded"] == "error:OutOfMemoryError"
+    assert arc["timing"]["degraded_fields"] == [first]
+    # The next field starts from the level the failed one started from.
+    assert len(held) == len(fields) and held[1] == held[0]
+    dec = arc.decode_all()
+    for name, x in fields.items():
+        e = arc["fields"][name]
+        assert ("degraded" in e) == (name == first)
+        assert np.abs(dec[name].astype(np.float64) - x).max() <= e["abs_eb"]
+
+
+@pytest.mark.cuda
+def test_telemetry_changes_no_entry_and_no_launch(cuda_device):
+    """Telemetry on (with the sample-PSNR hook) or off: equal entries; the
+    kernel launches differ only by the hook's own inference and enhance."""
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import archive as arc_io
+    from repro_torch.data import fields as fields_lib
+
+    fields = fields_lib.make_fields("hurricane", (6, 40, 36), seed=2)
+    runs = {}
+    for kind, tel in (("off", None), ("on", repro_torch.Telemetry()),
+                      ("sample_psnr", repro_torch.Telemetry(
+                          repro_torch.TelemetryConfig(sample_psnr=True)))):
+        kernels.reset_launch_counts()
+        arc = repro_torch.NeurLZ(epochs=2, device=cuda_device,
+                                 telemetry=tel).compress(fields, rel_eb=1e-3)
+        runs[kind] = (arc_io.dumps(arc["fields"]), kernels.launch_counts(), tel)
+    assert runs["on"][0] == runs["off"][0] == runs["sample_psnr"][0]
+    assert runs["on"][1] == runs["off"][1]
+    # The hook: per epoch and field, one inference forward (six conv
+    # launches) and one fused_enhance.
+    hook = 2 * len(fields)
+    off, sampled = runs["off"][1], runs["sample_psnr"][1]
+    assert sampled["fused_enhance"] == off["fused_enhance"] + hook
+    assert sampled["conv2d3x3"] == off["conv2d3x3"] + 6 * hook
+    assert sampled["conv2d3x3_bwd"] == off["conv2d3x3_bwd"]
+    tel = runs["sample_psnr"][2]
+    assert all(len(tel.trace(n)) == 2 and "sample_psnr" in tel.trace(n)[0]
+               for n in fields)

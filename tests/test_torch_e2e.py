@@ -10,7 +10,9 @@ once for both.
 * PSNR and bit rate within a stated tolerance of the reference's;
 * the port's decode equals its encoder's final field bit for bit;
 * archive files cross-open: the JAX package reads the port's and decodes its
-  conventional payloads to the same bytes, and the reverse.
+  conventional payloads to the same bytes, and the reverse;
+* the reference's entries streamed into an ``NLZSTRM2`` container by the
+  reference's appender open lazily in the port and decode as above.
 """
 import jax
 import numpy as np
@@ -20,12 +22,15 @@ import torch
 import repro
 import repro_torch
 from repro.compressors import szlike as ref_sz
+from repro.core import archive as ref_archive
+from repro.core import neurlz as ref_neurlz
 from repro.core import online_trainer as ref_trainer
 from repro.core import skipping_dnn as ref_dnn
 from repro.data import fields as ref_fields
 from repro_torch import compressors
 from repro_torch.compressors import szlike as port_sz
 from repro_torch.compressors import zfplike as port_zfp
+from repro_torch.core import archive as arc_io
 from repro_torch.core import conv_stage, metrics, neurlz, online_trainer
 from repro_torch.core import skipping_dnn as port_dnn
 
@@ -56,16 +61,22 @@ def _max_err(a, b):
     return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
 
 
-def test_main_path_matches_reference(tmp_path):
+@pytest.fixture(scope="module")
+def ref_main():
+    """The reference's serial archive of the main path and its decode."""
     ref_arc = repro.NeurLZ(engine="serial", lowering="eager", conv_batch=False,
                            epochs=EPOCHS, seed=SEED).compress(FIELDS,
                                                               rel_eb=REL_EB)
+    return ref_arc, ref_arc.decode_all()
+
+
+def test_main_path_matches_reference(tmp_path, ref_main):
+    ref_arc, ref_dec = ref_main
     init, sched = _carried_across(FIELDS)
     sess = repro_torch.NeurLZ(epochs=EPOCHS, seed=SEED, device="cpu")
     arc = sess.compress(FIELDS, rel_eb=REL_EB, init_params=init,
                         batch_schedules=sched)
     dec = arc.decode_all()
-    ref_dec = ref_arc.decode_all()
     cfg = sess.config
     for name, x in FIELDS.items():
         e, re_ = arc["fields"][name], ref_arc["fields"][name]
@@ -110,6 +121,32 @@ def test_main_path_matches_reference(tmp_path):
         # The port decoding the reference's weights: float32 tolerance.
         eb = ref_arc["fields"][name]["abs_eb"]
         assert _max_err(port_on_ref[name], ref_dec[name]) <= 1e-3 * eb
+
+
+def test_reference_container_opens_lazily_in_the_port(tmp_path, ref_main):
+    ref_arc, ref_dec = ref_main
+    path = tmp_path / "ref.nlzs"
+    meta = {"field_order": list(FIELDS),
+            "shapes": {n: list(x.shape) for n, x in FIELDS.items()},
+            "slice_axis": 0, "compressor": "szlike",
+            "timing": ref_arc["timing"]}
+    app = ref_archive.ArchiveAppender(str(path), durability="fsync",
+                                      prelude={"field_order": list(FIELDS)})
+    for name in FIELDS:
+        app.add_entry(name, ref_arc["fields"][name])
+    app.finalize(meta)
+
+    with repro_torch.open(path, device="cpu") as arc:
+        assert arc.streaming and arc.reader.entry_reads == []
+        dec = arc.decode_all()
+        with ref_archive.ArchiveReader(str(path)) as r:
+            want = ref_archive.dumps(ref_neurlz.assemble_streaming_archive(r))
+        assert ref_archive.dumps(arc.to_dict()) == want
+        assert arc.verify()["ok"]
+    for name in FIELDS:
+        # The port decoding the reference's weights: float32 tolerance.
+        eb = ref_arc["fields"][name]["abs_eb"]
+        assert _max_err(dec[name], ref_dec[name]) <= 1e-3 * eb
 
 
 def test_lorenzo_path_matches_reference():
@@ -160,7 +197,7 @@ def test_other_modes_decode_within_their_bound(mode, factor):
 @pytest.mark.parametrize("kwargs,match", [
     ({"engine": "batched"}, "batched engine"),
     ({"engine": "streaming"}, "streaming"),
-    ({"telemetry": object()}, "obs/faults"),
+    ({"max_resident_bytes": 1}, "streaming"),
     ({"group_size": 4}, "batched engine"),
     ({"learn_residual": False}, "the rest"),
 ])
@@ -178,47 +215,61 @@ def test_make_fields_is_the_reference_generator():
         assert got[name].tobytes() == want[name].tobytes()
 
 
-def test_missing_gpu_is_an_error(monkeypatch):
+@pytest.fixture(scope="module")
+def tiny_arc(tmp_path_factory):
+    """A one-field archive, saved whole and as an ``NLZSTRM2`` container."""
+    x = FIELDS["w"][:4]
+    arc = neurlz.compress_impl({"w": x}, REL_EB, device="cpu",
+                               config=neurlz.NeurLZConfig(epochs=1))
+    d = tmp_path_factory.mktemp("tiny")
+    arc_io.save(str(d / "w.nlz"), arc)
+    app = arc_io.ArchiveAppender(str(d / "w.nlzs"))
+    app.add_entry("w", arc["fields"]["w"])
+    app.finalize({"field_order": ["w"], "shapes": {"w": list(x.shape)},
+                  "slice_axis": 0, "compressor": "szlike"})
+    return x, arc, {"whole": d / "w.nlz", "container": d / "w.nlzs"}
+
+
+def test_missing_gpu_is_an_error(monkeypatch, tiny_arc):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.NeurLZ()
-
-
-@pytest.fixture(scope="module")
-def tiny_arc():
-    x = FIELDS["w"][:4]
-    return x, neurlz.compress_impl({"w": x}, REL_EB, device="cpu",
-                                   config=neurlz.NeurLZConfig(epochs=1))
+    for path in tiny_arc[2].values():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            repro_torch.open(path)
 
 
 # Every layer's entry point defaults to the card: without one it raises
 # instead of running on the CPU.
 DEFAULT_CUDA_CALLS = {
-    "compressors.compress": lambda x, arc: compressors.compress(x, REL_EB),
+    "compressors.compress": lambda x, arc, files: compressors.compress(x, REL_EB),
     "compressors.decompress":
-        lambda x, arc: compressors.decompress(arc["fields"]["w"]["conv"]),
-    "szlike.compress": lambda x, arc: port_sz.compress(x, REL_EB),
+        lambda x, arc, files: compressors.decompress(arc["fields"]["w"]["conv"]),
+    "szlike.compress": lambda x, arc, files: port_sz.compress(x, REL_EB),
     "szlike.decompress":
-        lambda x, arc: port_sz.decompress(arc["fields"]["w"]["conv"]),
-    "szlike.compress_batched": lambda x, arc: port_sz.compress_batched(
+        lambda x, arc, files: port_sz.decompress(arc["fields"]["w"]["conv"]),
+    "szlike.compress_batched": lambda x, arc, files: port_sz.compress_batched(
         [x, x], REL_EB, config=port_sz.SZLikeConfig(predictor="lorenzo")),
-    "zfplike.compress": lambda x, arc: port_zfp.compress(x, REL_EB),
-    "compressors.decompress_many": lambda x, arc: compressors.decompress_many(
+    "zfplike.compress": lambda x, arc, files: port_zfp.compress(x, REL_EB),
+    "compressors.decompress_many": lambda x, arc, files: compressors.decompress_many(
         {"w": arc["fields"]["w"]["conv"]}),
-    "ConvStage": lambda x, arc: conv_stage.ConvStage("szlike-lorenzo", REL_EB),
-    "neurlz.compress_impl": lambda x, arc: neurlz.compress_impl(
+    "ConvStage": lambda x, arc, files: conv_stage.ConvStage("szlike-lorenzo", REL_EB),
+    "neurlz.compress_impl": lambda x, arc, files: neurlz.compress_impl(
         {"w": x}, REL_EB, config=neurlz.NeurLZConfig(epochs=1)),
-    "neurlz.decompress": lambda x, arc: neurlz.decompress(arc),
+    "neurlz.decompress": lambda x, arc, files: neurlz.decompress(arc),
     "neurlz.decode_field_entry":
-        lambda x, arc: neurlz.decode_field_entry(arc["fields"]["w"], x, [], 0),
-    "SkippingDNN": lambda x, arc: port_dnn.SkippingDNN(port_dnn.SkippingDNNConfig()),
-    "Archive.from_dict": lambda x, arc: repro_torch.Archive.from_dict(arc),
+        lambda x, arc, files: neurlz.decode_field_entry(arc["fields"]["w"], x, [], 0),
+    "SkippingDNN": lambda x, arc, files: port_dnn.SkippingDNN(port_dnn.SkippingDNNConfig()),
+    "Archive.from_dict": lambda x, arc, files: repro_torch.Archive.from_dict(arc),
+    "Archive.open(container)":
+        lambda x, arc, files: repro_torch.Archive.open(files["container"]),
+    "repro_torch.open": lambda x, arc, files: repro_torch.open(files["whole"]),
 }
 
 
 @pytest.mark.parametrize("name", sorted(DEFAULT_CUDA_CALLS))
 def test_entry_points_default_to_cuda(monkeypatch, tiny_arc, name):
-    x, arc = tiny_arc
+    x, arc, files = tiny_arc
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        DEFAULT_CUDA_CALLS[name](x, arc)
+        DEFAULT_CUDA_CALLS[name](x, arc, files)
