@@ -14,7 +14,12 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    slices) plus odd sizes, stride 2 and Cout=1; its backward
    ``conv2d3x3_bwd`` (dgrad and wgrad in one launch, two at down1-down3)
    at the six training shapes and the odd and even test shapes, twice on
-   the same inputs (byte-identical);
+   the same inputs (byte-identical); the grouped forward and backward
+   (``conv2d3x3_grouped``, ``conv2d3x3_grouped_bwd``: three fields in one
+   launch, each with its own weights) at the six layers of a stacked
+   training step (F=3, N=10, 512²), each field byte for byte against the
+   single-field kernel and within tolerance of the plain version, with
+   and without dx, twice byte-identical, each field's ticket back at 0;
    ``fused_enhance`` byte for
    byte in float32 and float64, strict and relaxed, on the double-rounding
    canary and on a full field; ``lorenzo3d_fwd`` and ``lorenzo3d_inv`` byte
@@ -29,22 +34,38 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    the decode must equal the encoder's final field bit for bit; then
    torch.profiler traces of ten training steps, with the plain-PyTorch
    conv backward and with the kernels, in turns (plain, kernel, kernel,
-   plain): step time, kernels per step, device-busy share;
+   plain): step time, kernels per step, device-busy share; and of ten
+   stacked steps of three fields beside ten rounds of three serial steps,
+   in turns (serial, stacked, stacked, serial);
 5. the Lorenzo path on the same snapshot: ``NeurLZ(compressor=
    "szlike-lorenzo")``, its conventional stage one batched group of three
-   fields, the same checks on every field;
+   fields, the same checks on every field, at LORENZO_EPOCHS epochs (its
+   training is the main path's; the cut keeps the run inside its time
+   limit);
 6. the durable path on the same snapshot: the main path's configuration
    with telemetry (spans, counters, learning traces with the sample-PSNR
    hook) and faults (``train.precip`` injected, so ``precip`` degrades to
    conv-only; the first ``decode.entry`` read injected and healed by a
-   retry); the entries written one by one into an fsync'ed ``NLZSTRM2``
-   container, opened lazily and decoded field by field; ``cloud`` and ``w``
-   must equal the main path's entries and decode bit for bit, ``precip``
-   its conventional reconstruction; then ``verify`` on the container and on
+   retry), at DURABLE_EPOCHS epochs; the entries written one by one into
+   an fsync'ed ``NLZSTRM2`` container, opened lazily and decoded field by
+   field; ``cloud`` and ``w`` must equal, entry and decode bit for bit, the
+   serial engine's at those epochs (``NeurLZ.compress`` of the two fields
+   alone, without telemetry or faults), ``precip`` its
+   conventional reconstruction; then ``verify`` on the container and on
    a copy with a flipped bit, and ``repair=True`` on a copy cut before its
    footer; the Chrome trace goes to ``build/chip_smoke/durable_trace.json``;
-7. a ``zfplike`` conventional round trip on one full field;
-8. the launch count of every kernel over each path, counted from 0 just
+7. the batched path on the same snapshot: ``NeurLZ(engine="batched",
+   field_batching="vmap", group_size=0)``, one group of three fields
+   trained stacked through the grouped kernels, decoded with
+   ``engine="batched"``; the bound on every field, decode equal to the
+   encoder's final field bit for bit, conventional payloads equal to the
+   main path's, and the main path's archive decoded by the batched engine
+   equal to its serial decode byte for byte; ``stacked_bit_parity`` at the
+   group's signature: where it holds, every entry must equal the main
+   path's by SHA-256, else each field's PSNR and bit rate are printed
+   beside the main path's;
+8. a ``zfplike`` conventional round trip on one full field;
+9. the launch count of every kernel over each path, counted from 0 just
    before the path: each kernel of a path must have launched in it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
@@ -408,6 +429,190 @@ def conv_bwd_phase(dev, report: dict) -> dict:
     return summary
 
 
+GROUP_F = 3    # fields of the batched path's one group
+# Training cut from the paper's 100 epochs on two paths, so that the run
+# stays inside its time limit on a slower host; the main and batched paths
+# train 100.
+LORENZO_EPOCHS = 5
+DURABLE_EPOCHS = 10
+
+
+def grouped_phase(dev, report: dict) -> dict:
+    """``conv2d3x3_grouped`` and ``conv2d3x3_grouped_bwd`` at the six layers
+    of a stacked training step (F=3 fields of N=10 512² slices): each
+    field's output byte for byte against the single-field kernel on that
+    field, the whole within tolerance of the plain grouped version (the
+    single-field tolerances), two calls byte-identical, every field's
+    ticket back at 0; the backward with and without dx.  Then each timed as
+    the stacked step calls it (conv_in without dx) beside its plain version
+    and one grouped PyTorch call on the same data (``F.conv2d(groups=F)``,
+    ``aten.convolution_backward`` with ``groups=F``) on the fields stacked
+    along the channels, XLA's pads and the ReLU mask outside the timed
+    call.  Returns the forward's and the backward's summaries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d3x3 as conv
+
+    gen = torch.Generator().manual_seed(6)
+    nf, n = GROUP_F, 10
+    keys = ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms")
+    fwd = dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0}
+    bwd = dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0}
+    sums = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    rows = []
+    for name, h, cin, cout, s, relu in LAYERS_512:
+        x = torch.randn((nf * n, h, h, cin), generator=gen).to(dev)
+        wt = (torch.randn((nf, 3, 3, cin, cout), generator=gen) * 0.3).to(dev)
+        b = (torch.randn((nf, cout), generator=gen) * 0.1).to(dev)
+        parts = [slice(f * n, (f + 1) * n) for f in range(nf)]
+        y = conv.conv2d3x3_grouped(x, wt, b, stride=s, relu=relu)
+        again = conv.conv2d3x3_grouped(x, wt, b, stride=s, relu=relu)
+        singles = [conv.conv2d3x3(x[p], wt[f], b[f], stride=s, relu=relu)
+                   for f, p in enumerate(parts)]
+        if not (_bits_equal(y, again) and all(
+                _bits_equal(y[p], one) for p, one in zip(parts, singles))):
+            raise AssertionError(f"conv2d3x3_grouped {name}: a field differs "
+                                 "from its single-field launch")
+        want = conv.conv2d3x3_grouped_plain(x, wt, b, stride=s, relu=relu)
+        err = float((y - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        if not err <= CONV_TOL * scale:
+            raise AssertionError(f"conv2d3x3_grouped {name}: max |kernel - "
+                                 f"plain| {err} > {CONV_TOL} * {scale}")
+        g = torch.randn(tuple(y.shape), generator=gen).to(dev)
+        errs = {}
+        for with_dx in (True, False):
+            tag = "" if with_dx else "_without_dx"
+            got = conv.conv2d3x3_bwd_grouped(g, y, x, wt, stride=s, relu=relu,
+                                             need_dx=with_dx)
+            twice = conv.conv2d3x3_bwd_grouped(g, y, x, wt, stride=s,
+                                               relu=relu, need_dx=with_dx)
+            for f, p in enumerate(parts):
+                one = conv.conv2d3x3_bwd(g[p], y[p], x[p], wt[f], stride=s,
+                                         relu=relu, need_dx=with_dx)
+                same = [_bits_equal(got[1][f], one[1]),
+                        _bits_equal(got[2][f], one[2])]
+                if with_dx:
+                    same.append(_bits_equal(got[0][p], one[0]))
+                if not all(same):
+                    raise AssertionError(f"conv2d3x3_bwd_grouped {name}{tag}: "
+                                         f"field {f} differs from its "
+                                         "single-field call")
+            if not all(_bits_equal(a, e) for a, e in zip(got, twice)
+                       if a is not None):
+                raise AssertionError(f"conv2d3x3_bwd_grouped {name}{tag}: two "
+                                     "calls differ")
+            if int(conv.group_tickets(dev, nf).abs().sum()) != 0:
+                raise AssertionError(f"conv2d3x3_bwd_grouped {name}{tag}: a "
+                                     "ticket is not back at 0")
+            if with_dx:
+                want_dx = conv.conv2d3x3_grouped_dgrad_plain(
+                    g, y, wt, x.shape, stride=s, relu=relu)
+                errs["dx"] = float((got[0] - want_dx).abs().max())
+                if not errs["dx"] <= CONV_TOL * max(1.0, float(want_dx.abs().max())):
+                    raise AssertionError(f"conv2d3x3_bwd_grouped {name}: dx "
+                                         f"max |kernel - plain| {errs['dx']}")
+            want_dw, want_db = conv.conv2d3x3_grouped_wgrad_plain(
+                g, y, x, nf, stride=s, relu=relu)
+            terms = conv.conv2d3x3_grouped_wgrad_plain(
+                conv.relu_mask(g, y, relu).abs(), y, x.abs(), nf, stride=s,
+                relu=False)
+            for k, a, e, t in (("dw", got[1], want_dw, terms[0]),
+                               ("db", got[2], want_db, terms[1])):
+                errs[k + tag] = float((a - e).abs().max())
+                if not bool(((a - e).abs() <= WGRAD_TOL * t + 1e-6).all()):
+                    raise AssertionError(f"conv2d3x3_bwd_grouped {name}{tag}: "
+                                         f"{k} beyond {WGRAD_TOL} * sum|x g'|")
+
+        # Timing.  The library's data: the fields stacked along channels,
+        # [N, F*C, H, W] as channels_last views, XLA's pads outside.
+        ho, ylo, yhi = conv.same_pads(h, s)
+        wo, xlo, xhi = conv.same_pads(h, s)
+        need_dx = path_needs_dx(name)
+        xl = (F.pad(x, (0, 0, xlo, xhi, ylo, yhi))
+              .reshape(nf, n, h + ylo + yhi, h + xlo + xhi, cin)
+              .permute(1, 0, 4, 2, 3).reshape(n, nf * cin, h + ylo + yhi,
+                                              h + xlo + xhi)
+              .contiguous(memory_format=torch.channels_last))
+        wl = (wt.permute(0, 4, 3, 1, 2).reshape(nf * cout, cin, 3, 3)
+              .contiguous(memory_format=torch.channels_last))
+        bl = b.reshape(-1).contiguous()
+        gm = conv.relu_mask(g, y, relu)
+        gl = (gm.reshape(nf, n, ho, wo, cout).permute(1, 0, 4, 2, 3)
+              .reshape(n, nf * cout, ho, wo)
+              .contiguous(memory_format=torch.channels_last))
+        m = nf * n * ho * wo
+        f_bytes = 4 * (x.numel() + wt.numel() + b.numel() + m * cout)
+        f_ops = 2 * 9 * cin * cout * m
+        b_bytes = 4 * (x.numel() * (2 if need_dx else 1) + 2 * wt.numel()
+                       + g.numel() * (2 if relu else 1) + nf * cout)
+        b_ops = 2 * 9 * cin * cout * m * (2 if need_dx else 1) + m * cout
+        f_bound, _ = bound(f_bytes, f_ops, FP32_FLOPS)
+        b_bound, _ = bound(b_bytes, b_ops, FP32_FLOPS)
+        per_call = conv.bwd_kernels_per_call((n, h, h, cin), cout, stride=s,
+                                             need_dx=need_dx)
+
+        def run_fwd():
+            return conv.conv2d3x3_grouped(x, wt, b, stride=s, relu=relu)
+
+        def run_bwd():
+            return conv.conv2d3x3_bwd_grouped(g, y, x, wt, stride=s, relu=relu,
+                                              need_dx=need_dx)
+
+        def plain_bwd():
+            dx = (conv.conv2d3x3_grouped_dgrad_plain(g, y, wt, x.shape,
+                                                     stride=s, relu=relu)
+                  if need_dx else None)
+            return dx, conv.conv2d3x3_grouped_wgrad_plain(g, y, x, nf,
+                                                          stride=s, relu=relu)
+        row = {"case": f"{name}_F{nf}_N{n}", "x": [nf * n, h, h, cin],
+               "cout": cout, "stride": s, "relu": relu, "need_dx": need_dx,
+               "max_abs_err": {"y": err, **errs},
+               "fields_equal_single_launches": True,
+               "fwd": {"ms": device_ms(run_fwd, kernel="conv3x3_fwd_kernel",
+                                       name=f"grouped {name}"),
+                       "wall_ms": wall_ms(run_fwd),
+                       "plain_ms": device_ms(lambda: conv.conv2d3x3_grouped_plain(
+                           x, wt, b, stride=s, relu=relu), iters=5,
+                           name=f"grouped plain {name}"),
+                       "library_ms": device_ms(lambda: F.conv2d(
+                           xl, wl, bl, stride=s, groups=nf),
+                           name=f"cuDNN grouped {name}"),
+                       "bound_ms": f_bound, "bytes": f_bytes, "ops": f_ops},
+               "bwd": {"ms": device_ms(run_bwd, kernel="conv3x3_bwd",
+                                       per_call=per_call,
+                                       name=f"grouped bwd {name}"),
+                       "kernels_per_call": per_call,
+                       "wall_ms": wall_ms(run_bwd),
+                       "plain_ms": device_ms(plain_bwd, iters=5,
+                                             name=f"grouped bwd plain {name}"),
+                       "library_ms": device_ms(
+                           lambda: torch.ops.aten.convolution_backward(
+                               gl, xl, wl, [nf * cout], [s, s], [0, 0], [1, 1],
+                               False, [0, 0], nf, [need_dx, True, True]),
+                           name=f"convolution_backward grouped {name}"),
+                       "bound_ms": b_bound, "bytes": b_bytes, "ops": b_ops}}
+        for k in keys:
+            fwd[k] += row["fwd"][k]
+            bwd[k] += row["bwd"][k]
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], *errs.values())
+        sums["fwd"][0] += f_bytes
+        sums["fwd"][1] += f_ops
+        sums["bwd"][0] += b_bytes
+        sums["bwd"][1] += b_ops
+        rows.append(row)
+        print("conv2d3x3_grouped", json.dumps(row))
+    report["conv2d3x3_grouped_cases"] = rows
+    fwd["bound_by"] = bound(*sums["fwd"], FP32_FLOPS)[1]
+    bwd["bound_by"] = bound(*sums["bwd"], FP32_FLOPS)[1]
+    fwd["timed_at"] = (f"sum of the six grouped conv launches of one stacked "
+                       f"training forward (F={nf}, N={n}, 512²)")
+    bwd["timed_at"] = (f"sum of the six grouped backward calls of one stacked "
+                       f"training step (F={nf}, N={n}, 512², conv_in without dx)")
+    return {"conv2d3x3_grouped": fwd, "conv2d3x3_grouped_bwd": bwd}
+
+
 def enhance_phase(dev, shape, report: dict) -> dict:
     import numpy as np
     import torch
@@ -606,12 +811,50 @@ def lorenzo_phase(dev, fields, report: dict) -> dict:
     return out
 
 
-def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
-    """Trace ``steps`` training steps (batch 10, full-size slices) with
-    torch.profiler: wall time per step, device-busy time per step (the sum
+def trace_steps(step, steps: int = 10, counters=()) -> dict:
+    """Trace ``steps`` calls of ``step(i)`` with torch.profiler after three
+    warm-up calls: wall time per step, device-busy time per step (the sum
     of the CUDA kernels' durations; one stream, so they do not overlap),
     kernels per step and the kernels that take the most time; then time
-    ``steps`` more steps without the profiler (``step_ms_untraced``)."""
+    ``steps`` more calls without the profiler (``step_ms_untraced``).
+    ``counters`` are ``(name, module, attribute)`` launch counters read per
+    traced step."""
+    import torch
+
+    for i in range(3):
+        step(i)
+    wall = []
+    before = {name: getattr(mod, attr) for name, mod, attr in counters}
+
+    def steps_run():
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    kernels = device_events(traced(steps_run))
+    if not kernels:
+        raise AssertionError("the training-step trace held no device activity")
+    per_step = {f"{name}_launches_per_step": (getattr(mod, attr) - before[name]) / steps
+                for name, mod, attr in counters}
+    steps_run()
+    traced_wall, untraced_wall = wall
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "step_ms": traced_wall * 1e3 / steps,
+            "step_ms_untraced": untraced_wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_busy_share": busy_ms / (traced_wall * 1e3),
+            "kernels_per_step": len(kernels) / steps, **per_step,
+            "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps] for k, v in top]}
+
+
+def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
+    """:func:`trace_steps` of one field's training steps (batch 10,
+    full-size slices)."""
     import torch
     from repro_torch.core import online_trainer
     from repro_torch.kernels import conv2d3x3 as conv
@@ -627,36 +870,76 @@ def profile_train_steps(model, inputs, targets, steps: int = 10) -> dict:
         idx = torch.arange(10 * i, 10 * i + 10, device=dev) % n
         loss = online_trainer.batch_loss(model, xs[idx], ys[idx])
         opt.step(torch.autograd.grad(loss, params), lr=1e-3)
+    return trace_steps(step, steps,
+                       (("conv2d3x3_bwd", conv, "bwd_launches"),))
 
-    for i in range(3):
-        step(i)
-    wall = []
-    bwd_before = conv.bwd_launches
 
-    def steps_run():
-        t0 = time.perf_counter()
-        for i in range(steps):
-            step(i)
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
-    kernels = device_events(traced(steps_run))
-    if not kernels:
-        raise AssertionError("the training-step trace held no device activity")
-    bwd_per_step = (conv.bwd_launches - bwd_before) / steps
-    steps_run()
-    traced_wall, untraced_wall = wall
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_ms = sum(by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": steps, "step_ms": traced_wall * 1e3 / steps,
-            "step_ms_untraced": untraced_wall * 1e3 / steps,
-            "device_busy_ms_per_step": busy_ms / steps,
-            "device_busy_share": busy_ms / (traced_wall * 1e3),
-            "kernels_per_step": len(kernels) / steps,
-            "conv2d3x3_bwd_launches_per_step": bwd_per_step,
-            "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps] for k, v in top]}
+def stacked_step_ab(model, inputs, targets, steps: int = 10) -> dict:
+    """A stacked training step of GROUP_F fields (``train_stacked``'s step:
+    one stacked forward and backward through the grouped kernels, Adam on
+    the stacked tensors) beside one round of GROUP_F serial steps (one
+    field after another), traced in turns (serial, stacked, stacked,
+    serial).  Every field starts from ``model``'s weights and takes its own
+    slices of ``inputs``."""
+    import torch
+    from repro_torch.core import online_trainer, skipping_dnn
+    from repro_torch.kernels import conv2d3x3 as conv
+    from repro_torch.optim import AdamW
+
+    dev = next(model.parameters()).device
+    nf = GROUP_F
+    xs, ys = (torch.as_tensor(a, device=dev) for a in (inputs, targets))
+    n = xs.shape[0]
+    tree = {k: {p: v.detach().clone() for p, v in d.items()}
+            for k, d in model.tree().items()}
+    cfg = model.cfg
+
+    def rows(i, f):
+        return torch.arange(10 * (i + f), 10 * (i + f) + 10, device=dev) % n
+
+    models = [skipping_dnn.SkippingDNN(cfg, tree, device=dev) for _ in range(nf)]
+    opts = [AdamW(list(m.parameters())) for m in models]
+
+    def serial(i):
+        for f, (m, opt) in enumerate(zip(models, opts)):
+            idx = rows(i, f)
+            loss = online_trainer.batch_loss(m, xs[idx], ys[idx])
+            opt.step(torch.autograd.grad(loss, list(m.parameters())), lr=1e-3)
+
+    stacked = skipping_dnn.stack_params([tree] * nf)
+    leaves = [v.requires_grad_() for v in skipping_dnn.tree_leaves(stacked)]
+    sopt = AdamW(leaves)
+
+    def stacked_step(i):
+        idx = torch.cat([rows(i, f) for f in range(nf)])
+        xb = xs[idx].reshape(nf, 10, *xs.shape[1:])
+        yb = ys[idx].reshape(nf, 10, *ys.shape[1:])
+        loss = online_trainer.stacked_batch_loss(stacked, xb, yb,
+                                                 regulated=cfg.regulated,
+                                                 skip=cfg.skip)
+        sopt.step(torch.autograd.grad(loss.sum(), leaves), lr=1e-3)
+
+    counters = (("conv2d3x3", conv, "launches"),
+                ("conv2d3x3_bwd", conv, "bwd_launches"),
+                ("conv2d3x3_grouped", conv, "grouped_launches"),
+                ("conv2d3x3_grouped_bwd", conv, "grouped_bwd_launches"))
+    runs = []
+    for side in ("serial", "stacked", "stacked", "serial"):
+        runs.append({"side": side, **trace_steps(
+            serial if side == "serial" else stacked_step, steps, counters)})
+    want = {"serial": (6 * nf, 6 * nf, 0, 0), "stacked": (0, 0, 6, 6)}
+    out = {"fields": nf, "order": [r["side"] for r in runs], "runs": runs}
+    for side in ("serial", "stacked"):
+        mine = [r for r in runs if r["side"] == side]
+        for r in mine:
+            seen = tuple(r[f"{c[0]}_launches_per_step"] for c in counters)
+            if seen != want[side]:
+                raise AssertionError(f"{side} step: conv launches per step "
+                                     f"{seen}, want {want[side]}")
+        out[side] = {k: sum(r[k] for r in mine) / len(mine)
+                     for k in ("step_ms", "step_ms_untraced", "kernels_per_step",
+                               "device_busy_ms_per_step", "device_busy_share")}
+    return out
 
 
 def plain_backward_conv3x3(wgrad=None):
@@ -772,8 +1055,10 @@ def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
     t_decode = time.perf_counter() - t0
     launches = kernels.launch_counts()
     kept = {"entries": {n: arc_io.dumps(e) for n, e in opened["fields"].items()},
+            "conv": {n: arc_io.dumps(e["conv"])
+                     for n, e in opened["fields"].items()}, "epochs": epochs,
             "decoded": decoded, "compress_s": t_compress,
-            "timing": arc["timing"]}
+            "timing": arc["timing"], "path": path}
 
     per_field = {}
     for name, x in fields.items():
@@ -810,6 +1095,7 @@ def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
         raise AssertionError(f"{name}: outlier mask differs from the archive's")
 
     trace = train_step_ab(model, inputs, targets)
+    trace["stacked"] = stacked_step_ab(model, inputs, targets)
     print("train_step_trace", json.dumps(trace))
     conv_profile = profile_conv_stage(x, dev)
     print("conv_stage_profile", json.dumps(conv_profile))
@@ -826,6 +1112,7 @@ def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
     print("main_path", json.dumps({k: v for k, v in out.items()
                                    if k != "per_field"}))
     report["main_path"] = out
+    kept["per_field"] = per_field
     return launches, kept
 
 
@@ -905,7 +1192,6 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     durable container: ``train.precip`` is injected (``precip`` degrades to
     conv-only), the first ``decode.entry`` read is injected and healed by a
     retry.  ``main`` is what :func:`main_path` kept."""
-    import numpy as np
     import torch
     import repro_torch
     from repro_torch import kernels
@@ -959,6 +1245,16 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     check(reads_at_open == 0, f"{reads_at_open} entry reads at open")
     check(arc["timing"]["degraded_fields"] == ["precip"],
           f"degraded {arc['timing']['degraded_fields']}")
+
+    # What the serial engine writes for the trained fields at these epochs,
+    # without telemetry or faults: each field's entry depends on that field
+    # alone (its own bound, conventional payload and fresh generator).
+    ref_fields = {n: x for n, x in fields.items() if n != "precip"}
+    ref_sess = repro_torch.NeurLZ(epochs=epochs, device=dev)
+    ref_arc = ref_sess.compress(ref_fields, rel_eb=1e-3)
+    ref_dec = ref_sess.decompress(ref_arc)
+    reference = {n: (arc_io.dumps(ref_arc["fields"][n]), ref_dec[n])
+                 for n in ref_fields}
     per_field = {}
     for name, x in fields.items():
         e = opened.entry(name)
@@ -971,10 +1267,10 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
             check(decoded[name].tobytes() == conv_rec.tobytes(),
                   "precip does not decode to its conventional reconstruction")
         else:
-            check(arc_io.dumps(e) == main["entries"][name],
-                  f"{name}: entry differs from the main path's")
-            check(decoded[name].tobytes() == main["decoded"][name].tobytes(),
-                  f"{name}: decode differs from the main path's")
+            check(arc_io.dumps(e) == reference[name][0],
+                  f"{name}: entry differs from the serial engine's")
+            check(decoded[name].tobytes() == reference[name][1].tobytes(),
+                  f"{name}: decode differs from the serial engine's")
         per_field[name] = {"max_err_over_eb": chk["max_abs_err"] / e["abs_eb"],
                            "degraded": e.get("degraded"),
                            "bitrate": opened.bitrate(name)["bitrate"]}
@@ -1037,8 +1333,9 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     torn.unlink()
 
     timing = arc["timing"]
-    per_trained = {"durable": timing["train_s"] / len(trained),
-                   "main": main["timing"]["train_s"] / len(fields)}
+    per_trained = {"durable": timing["train_s"] / (len(trained) * epochs),
+                   "main": main["timing"]["train_s"] / (len(fields)
+                                                        * main["epochs"])}
     out = {"compressor": "szlike", "epochs": epochs, "rel_eb": 1e-3,
            "mode": "strict", "container_bytes": nbytes,
            "compress_s": t_compress, "decode_s": t_decode,
@@ -1051,7 +1348,7 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
            "stages": timing, "spans": tel.span_summary(),
            "root_covered": cover, "counters": counters,
            "telemetry_overhead": {
-               "train_s_per_trained_field": per_trained,
+               "train_s_per_trained_field_epoch": per_trained,
                "train_ratio": per_trained["durable"] / per_trained["main"],
                "conv_s_ratio": timing["conv_s"] / main["timing"]["conv_s"],
                "compress_s": {"durable": t_compress,
@@ -1064,6 +1361,112 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     print("durable_path", json.dumps({k: v for k, v in out.items()
                                       if k not in ("per_field", "spans")}))
     report["durable_path"] = out
+    return launches
+
+
+def batched_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
+    """``NeurLZ(engine="batched", field_batching="vmap", group_size=0)``:
+    the snapshot's three fields as one group trained stacked through the
+    grouped kernels, decoded with ``engine="batched"``.  ``main`` is what
+    :func:`main_path` kept."""
+    import hashlib
+    import torch
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.compressors import szlike
+    from repro_torch.core import archive as arc_io
+    from repro_torch.core import batched_engine, metrics, neurlz
+    from repro_torch.core import online_trainer, regulation
+
+    raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
+    path = ROOT / "build" / "chip_smoke" / "hurricane_batched.nlz"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess = repro_torch.NeurLZ(engine="batched", field_batching="vmap",
+                              group_size=0, epochs=epochs, device=dev)
+    arc = sess.compress(fields, rel_eb=1e-3)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+    nbytes = arc.save(path)
+    t0 = time.perf_counter()
+    opened = repro_torch.Archive.open(path, device=dev)
+    decoded = sess.decompress(opened)        # engine="batched"
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"batched path: {what}")
+
+    group = ",".join(fields)
+    check(arc["timing"]["strategies"] == {group: "vmap"},
+          f"strategies {arc['timing']['strategies']}")
+    # The main path's archive through the batched decode: the serial
+    # decode's bytes.
+    t0 = time.perf_counter()
+    main_batched = repro_torch.Archive.open(main["path"], device=dev).decode_all(
+        engine="batched")
+    t_main_decode = time.perf_counter() - t0
+    for name in fields:
+        check(main_batched[name].tobytes() == main["decoded"][name].tobytes(),
+              f"{name}: the batched decode of the main path's archive differs "
+              "from its serial decode")
+    # The stacked step's byte parity at the group's signature.
+    e0 = opened["fields"][next(iter(fields))]
+    net_cfg = neurlz.NeurLZConfig().net_config(e0["net"]["c_in"])
+    shape = next(iter(fields.values())).shape
+    parity = batched_engine.stacked_bit_parity(
+        net_cfg, shape[1:], min(10, shape[0]), len(fields), dev)
+    print(f"batched path: stacked_bit_parity at slices {list(shape[1:])}, "
+          f"batch {min(10, shape[0])}, {len(fields)} fields on "
+          f"{torch.device(dev).type}: {parity}")
+
+    per_field = {}
+    for name, x in fields.items():
+        e = opened["fields"][name]
+        eb = e["abs_eb"]
+        chk = regulation.check_bound(x, decoded[name], eb, "strict")
+        check(chk["ok"], f"{name}: max error {chk['max_abs_err']} > {eb}")
+        check(arc_io.dumps(e["conv"]) == main["conv"][name],
+              f"{name}: conventional payload differs from the main path's")
+        rec = szlike.decompress(e["conv"], device=dev)
+        model = neurlz.decode_entry_net(e, dev)
+        inputs, _, _ = online_trainer.make_dataset(rec, x, eb)
+        resid = online_trainer.predict_residual(model, inputs)
+        final, mask = neurlz.enhance_and_mask(x, rec, resid, eb, sess.config)
+        check(final.cpu().numpy().tobytes() == decoded[name].tobytes(),
+              f"{name}: decode differs from the encoder's field")
+        check(int(mask.sum()) == e["outliers"]["count"],
+              f"{name}: outlier mask differs from the archive's")
+        sha = hashlib.sha256(arc_io.dumps(e)).hexdigest()
+        main_sha = hashlib.sha256(main["entries"][name]).hexdigest()
+        if parity:
+            check(sha == main_sha, f"{name}: stacked_bit_parity holds but the "
+                                   "entry differs from the main path's")
+        per_field[name] = {
+            "abs_eb": eb, "max_err_over_eb": chk["max_abs_err"] / eb,
+            "psnr_enhanced": metrics.psnr(x, decoded[name]),
+            "psnr_main": main["per_field"][name]["psnr_enhanced"],
+            "bitrate": opened.bitrate(name)["bitrate"],
+            "bitrate_main": main["per_field"][name]["bitrate"],
+            "outlier_rate": e["outliers"]["count"] / x.size,
+            "final_loss": e["loss_history"][-1],
+            "final_loss_main": main["per_field"][name]["final_loss"],
+            "entry_sha256": sha, "entry_equals_main": sha == main_sha}
+        print("batched_field", name, json.dumps(per_field[name]))
+    out = {"engine": "batched", "field_batching": "vmap", "group_size": 0,
+           "epochs": epochs, "rel_eb": 1e-3, "mode": "strict",
+           "archive_bytes": nbytes, "compress_s": t_compress,
+           "decode_s": t_decode, "main_archive_batched_decode_s": t_main_decode,
+           "compress_MB_per_s": raw_mb / t_compress,
+           "decode_MB_per_s": raw_mb / t_decode, "stages": dict(arc["timing"]),
+           "stacked_bit_parity": parity,
+           "main_compress_s": main["compress_s"], "per_field": per_field,
+           "launches": launches, "decode_equals_encoder": True}
+    print("batched_path", json.dumps({k: v for k, v in out.items()
+                                      if k != "per_field"}))
+    report["batched_path"] = out
     return launches
 
 
@@ -1111,7 +1514,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import device as device_lib
-    from repro_torch import kernels
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -1139,6 +1541,7 @@ def main() -> int:
 
     summaries = {"conv2d3x3": conv_phase(dev, report),
                  "conv2d3x3_bwd": conv_bwd_phase(dev, report),
+                 **grouped_phase(dev, report),
                  "fused_enhance": enhance_phase(dev, shape, report),
                  **lorenzo_phase(dev, fields, report)}
     if args.epochs < 100:
@@ -1148,12 +1551,19 @@ def main() -> int:
     # of a path must have launched in it.
     main_launches, main_kept = main_path(dev, fields, args.epochs, report)
     by_path = {"main": main_launches,
-               "lorenzo": lorenzo_path(dev, fields, args.epochs, report),
-               "durable": durable_path(dev, fields, args.epochs, main_kept,
+               "lorenzo": lorenzo_path(dev, fields,
+                                       min(args.epochs, LORENZO_EPOCHS), report),
+               "durable": durable_path(dev, fields,
+                                       min(args.epochs, DURABLE_EPOCHS),
+                                       main_kept, report),
+               "batched": batched_path(dev, fields, args.epochs, main_kept,
                                        report)}
-    path_kernels = {"main": ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance"),
-                    "lorenzo": tuple(kernels.KERNELS),
-                    "durable": ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")}
+    single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
+    path_kernels = {"main": single,
+                    "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),
+                    "durable": single,
+                    "batched": ("conv2d3x3", "conv2d3x3_grouped",
+                                "conv2d3x3_grouped_bwd", "fused_enhance")}
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")
@@ -1166,6 +1576,12 @@ def main() -> int:
                           "src/repro/kernels/conv2d3x3.py:73"),
             "conv2d3x3_bwd": ("src/repro_torch/csrc/conv2d3x3_bwd.cu",
                               "src/repro/kernels/conv2d3x3.py:73"),
+            # conv2d3x3 under jax.vmap over fields, the JAX package's
+            # stacked training (src/repro/core/batched_engine.py:193).
+            "conv2d3x3_grouped": ("src/repro_torch/csrc/conv2d3x3.cu",
+                                  "src/repro/kernels/conv2d3x3.py:73"),
+            "conv2d3x3_grouped_bwd": ("src/repro_torch/csrc/conv2d3x3_bwd.cu",
+                                      "src/repro/kernels/conv2d3x3.py:73"),
             "fused_enhance": ("src/repro_torch/csrc/fused_enhance.cu",
                               "src/repro/kernels/fused_enhance.py:59"),
             "lorenzo3d_fwd": ("src/repro_torch/csrc/lorenzo3d.cu",

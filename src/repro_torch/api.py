@@ -54,8 +54,13 @@ class ModelConfig:
 class EngineConfig:
     """Which engine executes a compression run."""
 
-    engine: str = "serial"
+    engine: str = "serial"              # serial | batched
     compressor: str = "szlike"          # szlike | szlike-lorenzo | zfplike
+    field_batching: str = "auto"        # auto | unroll | vmap (stacked)
+    group_size: int = 2                 # fields per batched group (0 = all)
+    prefetch: bool = True               # conventional stage lazily a group
+    field_shard: bool = True            # spread groups over devices (one
+    #   device a session: nothing to spread)
     conv_batch: bool = True             # batched conventional stage
     telemetry: object | None = None     # repro_torch.Telemetry (None: off)
     faults: object | None = None        # repro_torch.FaultConfig (None:
@@ -73,10 +78,6 @@ _REG_FIELDS = tuple(f.name for f in dataclasses.fields(RegulationConfig))
 
 # Knobs of the JAX package's engines that the port does not have yet.
 _UNPORTED_KNOBS = {
-    "field_batching": "the batched engine",
-    "group_size": "the batched engine",
-    "prefetch": "the batched engine",
-    "field_shard": "the batched engine",
     "max_resident_bytes": "streaming",
 }
 
@@ -170,11 +171,13 @@ class NeurLZ:
 
     def decompress(self, archive) -> dict:
         """Decode every field of an :class:`Archive` or archive dict on
-        this session's device, with its telemetry and faults."""
+        this session's device, with its telemetry and faults, by this
+        session's engine (``batched`` decodes as ``serial`` does)."""
         if not (isinstance(archive, Archive) and archive.device == self.device):
             arc = archive.to_dict() if isinstance(archive, Archive) else archive
             archive = Archive(arc, device=self.device)
-        return self._adopt(archive).decode_all()
+        engine = "batched" if self.engine.engine == "batched" else "serial"
+        return self._adopt(archive).decode_all(engine=engine)
 
     def __repr__(self) -> str:
         return (f"NeurLZ(engine={self.engine.engine!r}, "

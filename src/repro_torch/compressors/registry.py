@@ -235,12 +235,11 @@ def _register_builtins() -> None:
         return szlike.compress_batched(xs, rel_eb, abs_eb=abs_eb,
                                        config=lorenzo, device=device)
 
-    # The interp predictor's stacked walk comes with the batched engine, so
-    # its entry compresses field by field; decode is shared with the kind.
     register(CompressorEntry(
         name="szlike", kind="szlike",
         compress=szlike.compress, decompress=szlike.decompress,
         archive_nbytes=szlike.archive_nbytes,
+        compress_batched=szlike.compress_batched,
         decompress_batched=szlike.decompress_batched,
         decode_key=szlike.decode_key,
         description="SZ3-style multilevel cubic-interpolation predictor"))

@@ -6,7 +6,9 @@ Two predictors, as in the JAX package:
   lattice first, then refine level by level and axis by axis, predicting
   each midpoint by cubic interpolation of already-reconstructed neighbours.
   A phase has no sequential dependency, so it is a handful of elementwise
-  tensor ops over strided views of the field.
+  tensor ops over strided views of the field.  A group of same-shape
+  fields walks stacked, ``[F, ...]``, one op sequence for the group
+  (:func:`compress_batched`, :func:`decompress_batched`).
 * ``lorenzo`` -- cuSZ-style dual quantization: pre-quantize the field onto
   the ``2 eb`` lattice, then take the 3-D first-order Lorenzo delta of the
   integer grid.  Encode and decode are the ``lorenzo3d_fwd`` and
@@ -20,8 +22,12 @@ kernels write every float64 operation as a round-to-nearest intrinsic).
 Eager PyTorch launches one kernel per op, so no multiply-add is ever
 contracted and every value is rounded where the reference rounds it: the
 codes, escape masks, literals and reconstruction are byte-identical to the
-JAX package's.  The stored ``mean`` and the absolute bound are computed
-with numpy on the host, in the reference's summation order.  Encoder and
+JAX package's.  The stacked walk divides each field by its own step as a
+host scalar, as the one-field walk does (on CUDA PyTorch divides by a
+host scalar as a multiply by its reciprocal, by a tensor exactly), so its
+payloads equal one :func:`compress` per field on every device.  The
+stored ``mean`` and the absolute bound are computed with numpy on the
+host, in the reference's summation order.  Encoder and
 decoder share the arithmetic, so the encoder's ``rec`` equals the decoder's
 output bit for bit.
 """
@@ -35,7 +41,6 @@ import torch
 
 from .. import device as device_lib
 from ..kernels import lorenzo3d
-from ..roadmap import unported
 from . import codec, entropy
 from .quantize import CODE_CAP, abs_bound_from_rel
 
@@ -69,15 +74,29 @@ def _pad_to_lattice(x: np.ndarray, level: int) -> tuple[np.ndarray, tuple]:
     return np.pad(x, pads, mode="edge"), tuple(x.shape)
 
 
-def _quantize_phase(values, pred, eb: float, out_dtype: torch.dtype):
-    """Quantize/reconstruct one phase (both directions share it).
+def _field_bound(ebs, like: torch.Tensor) -> torch.Tensor:
+    """Per-field bounds ``[F, 1, ...]`` to broadcast over a stacked walk."""
+    return torch.tensor(ebs, dtype=_F64, device=like.device).reshape(
+        (len(ebs),) + (1,) * (like.dim() - 1))
+
+
+def _quantize_phase(values, pred, eb, out_dtype: torch.dtype):
+    """Quantize/reconstruct one phase (both directions share it).  ``eb`` is
+    a float, or a tuple of per-field bounds over a stacked ``[F, ...]``
+    phase.
 
     A point becomes a literal when its code overflows, when it or its
     prediction is non-finite, or when rounding the reconstruction to the
     output dtype would push it past the bound.
     """
-    step = 2.0 * eb
-    q = torch.round((values - pred) / step)
+    if isinstance(eb, tuple):
+        diff = values - pred
+        q = torch.round(torch.stack([d / (2.0 * e) for d, e in zip(diff, eb)]))
+        eb = _field_bound(eb, values)
+        step = 2.0 * eb
+    else:
+        step = 2.0 * eb
+        q = torch.round((values - pred) / step)
     unpred = ((torch.abs(q) >= CODE_CAP) | ~torch.isfinite(values)
               | ~torch.isfinite(pred))
     codes = torch.where(unpred, 0, q).to(torch.int32)
@@ -224,6 +243,103 @@ def _interp_decode(pad_shape, eb: float, level: int, phases, mean: float,
     return rec
 
 
+def _interp_encode_batched(xs: torch.Tensor, ebs: tuple, level: int, phases,
+                           means: list, out_dtype: torch.dtype):
+    """:func:`_interp_encode` over a stacked ``[F, ...]`` group of padded
+    float64 fields, each with its own bound and mean: the same op sequence
+    with a leading field axis.  Returns the stacked reconstruction and each
+    field's host streams ``(codes, masks, literals)`` in phase order."""
+    nf, fshape = xs.shape[0], tuple(xs.shape[1:])
+    rec = torch.empty(xs.shape, dtype=xs.dtype, device=xs.device)
+    for f, m in enumerate(means):
+        rec[f].fill_(m)
+    codes_out, masks_out, lits_out = [], [], []
+
+    def step(tvals, pred):
+        c, r, u = _quantize_phase(tvals, pred, ebs, out_dtype)
+        codes_out.append(c.reshape(nf, -1))
+        masks_out.append(u.reshape(nf, -1))
+        lits_out.append([tvals[f][u[f]] for f in range(nf)])
+        return r
+
+    init = (slice(None),) + tuple(slice(0, 1) if d == 1
+                                  else slice(0, None, 1 << level)
+                                  for d in fshape)
+    rec[init] = step(xs[init], rec[init])
+    for s, axis in phases:
+        tgt, coarse = _phase_slicers(fshape, axis, s)
+        tgt, coarse = (slice(None),) + tgt, (slice(None),) + coarse
+        pred = _cubic_midpoint(rec[coarse], axis + 1)
+        if pred.numel() == 0:
+            continue
+        rec[tgt] = step(xs[tgt], pred)
+    codes = torch.cat(codes_out, dim=1).cpu().numpy()
+    masks = torch.cat(masks_out, dim=1).cpu().numpy()
+    return rec, [(codes[f], masks[f],
+                  torch.cat([p[f] for p in lits_out]).cpu().numpy())
+                 for f in range(nf)]
+
+
+def _interp_decode_batched(pad_shape, ebs: tuple, level: int, phases,
+                           means: list, streams: list, device) -> torch.Tensor:
+    """:func:`_interp_decode` of a stacked group: each field's host streams
+    ``(codes, masks, literals)``, the cursors in lockstep (the fields share
+    the phase schedule), each field's literals patched in its own stream
+    order.  Returns the stacked padded reconstruction."""
+    nf = len(streams)
+    rec = torch.empty((nf, *pad_shape), dtype=_F64, device=device)
+    for f, m in enumerate(means):
+        rec[f].fill_(m)
+    codes_t = torch.from_numpy(np.stack([c for c, _, _ in streams])).to(device)
+    masks_t = torch.from_numpy(np.stack([m for _, m, _ in streams])).to(device)
+    lits_t = [torch.from_numpy(np.ascontiguousarray(lv, np.float64)).to(device)
+              for _, _, lv in streams]
+    step2 = 2.0 * _field_bound(ebs, rec)
+    cursor, lit_cursor = 0, [0] * nf
+
+    def step(pred):
+        nonlocal cursor
+        n = pred[0].numel()
+        c = codes_t[:, cursor:cursor + n].reshape(pred.shape)
+        un = masks_t[:, cursor:cursor + n].reshape(pred.shape)
+        cursor += n
+        r = (pred + c.to(pred.dtype) * step2).contiguous()
+        for f in range(nf):
+            k = int(un[f].sum())
+            if k:
+                r[f].masked_scatter_(un[f], lits_t[f][lit_cursor[f]:lit_cursor[f] + k])
+                lit_cursor[f] += k
+        return r
+
+    init = (slice(None),) + tuple(slice(0, 1) if d == 1
+                                  else slice(0, None, 1 << level)
+                                  for d in pad_shape)
+    rec[init] = step(rec[init])
+    for s, axis in phases:
+        tgt, coarse = _phase_slicers(pad_shape, axis, s)
+        tgt, coarse = (slice(None),) + tgt, (slice(None),) + coarse
+        pred = _cubic_midpoint(rec[coarse], axis + 1)
+        if pred.numel() == 0:
+            continue
+        rec[tgt] = step(pred)
+    return rec
+
+
+def _interp_archive(shape, pad_shape, dtype, level, abs_eb, eb_int, mean,
+                    codes, masks, lits, zstd_level: int) -> dict:
+    arc = {
+        "kind": "szlike", "predictor": "interp", "level": level,
+        "shape": list(shape), "pad_shape": list(pad_shape),
+        "dtype": str(dtype), "abs_eb": abs_eb, "eb_int": eb_int,
+        "mean": mean,
+        "codes": entropy.encode_codes(codes, zstd_level),
+        "unpred": _encode_mask(masks, zstd_level),
+        "literals": entropy.encode_floats(lits, zstd_level),
+    }
+    arc["nbytes"] = archive_nbytes(arc)
+    return arc
+
+
 def _prepare(x, rel_eb, abs_eb, config: SZLikeConfig):
     """``(abs_eb, eb_int, float64 work copy, mean)`` of one field, on the
     host in the reference's order."""
@@ -316,16 +432,8 @@ def compress(x: np.ndarray, rel_eb: float | None = None, *,
     rec, (codes, masks, lits) = _interp_encode(
         xt, eb_int, level, phases, mean, _torch_dtype(orig_dtype))
     rec_np = rec.cpu().numpy()[tuple(slice(0, d) for d in orig_shape)]
-    arc = {
-        "kind": "szlike", "predictor": "interp", "level": level,
-        "shape": list(orig_shape), "pad_shape": list(padded.shape),
-        "dtype": str(orig_dtype), "abs_eb": abs_eb, "eb_int": eb_int,
-        "mean": mean,
-        "codes": entropy.encode_codes(codes, config.zstd_level),
-        "unpred": _encode_mask(masks, config.zstd_level),
-        "literals": entropy.encode_floats(lits, config.zstd_level),
-    }
-    arc["nbytes"] = archive_nbytes(arc)
+    arc = _interp_archive(orig_shape, padded.shape, orig_dtype, level, abs_eb,
+                          eb_int, mean, codes, masks, lits, config.zstd_level)
     return arc, rec_np.astype(orig_dtype, copy=False)
 
 
@@ -333,18 +441,15 @@ def compress_batched(xs, rel_eb: float | None = None, *,
                      abs_eb: float | None = None,
                      config: SZLikeConfig = SZLikeConfig(),
                      device=None) -> list:
-    """Compress a group of same-shape, same-dtype fields with the Lorenzo
-    predictor in one ``lorenzo3d_fwd`` launch; the host entropy stage stays
-    per field.  Payloads are byte-identical to one :func:`compress` call per
-    field: each field's bound and mean are derived as that path derives
-    them.  Returns ``[(archive, reconstruction), ...]`` in order.
-
-    The interpolation predictor's stacked walk comes with the batched
-    engine; until then it is compressed one field at a time.
+    """Compress a group of same-shape, same-dtype fields in one stacked
+    pass: the interp walk over ``[F, ...]``, or one ``lorenzo3d_fwd`` launch;
+    the host entropy stage stays per field.  Payloads are byte-identical to
+    one :func:`compress` call per field: each field's bound and mean are
+    derived as that path derives them.  Returns ``[(archive,
+    reconstruction), ...]`` in order.
     """
-    if config.predictor != "lorenzo":
-        raise unported("the stacked interp walk (compress_batched)",
-                       "the batched engine")
+    if config.predictor not in ("interp", "lorenzo"):
+        raise ValueError(f"unknown predictor {config.predictor!r}")
     device = device_lib.resolve(device)
     arrs = [np.asarray(x) for x in xs]
     if not arrs:
@@ -358,6 +463,18 @@ def compress_batched(xs, rel_eb: float | None = None, *,
         raise ValueError("pass rel_eb or abs_eb")
     prep = [_prepare(a, rel_eb, abs_eb, config) for a in arrs]
     works = [p[2] for p in prep]
+    if config.predictor == "interp":
+        level, phases = _interp_schedule(shape, config.max_level)
+        padded = np.stack([_pad_to_lattice(w, level)[0] for w in works])
+        rec, streams = _interp_encode_batched(
+            torch.from_numpy(padded).to(device), tuple(p[1] for p in prep),
+            level, phases, [p[3] for p in prep], _torch_dtype(dtype))
+        recs = rec.cpu().numpy()[(slice(None),)
+                                 + tuple(slice(0, d) for d in shape)]
+        return [(_interp_archive(shape, padded.shape[1:], dtype, level, ab,
+                                 eb_int, mean, *streams[f], config.zstd_level),
+                 recs[f].astype(dtype, copy=False))
+                for f, (ab, eb_int, _, mean) in enumerate(prep)]
     d, un, rec = _lorenzo_encode_group(works, [p[1] for p in prep], dtype,
                                        device)
     out = []
@@ -397,8 +514,7 @@ def decode_key(arc: dict) -> tuple:
 def decompress_batched(arcs: list, device=None) -> list:
     """Decode a ``decode_key``-matched group; bit-identical to one
     :func:`decompress` per archive.  A Lorenzo group is one stacked
-    ``lorenzo3d_inv`` launch; interp archives decode one at a time until
-    the batched engine brings their stacked walk."""
+    ``lorenzo3d_inv`` launch, an interp group one stacked walk."""
     if not arcs:
         return []
     if any(a["kind"] != "szlike" for a in arcs):
@@ -409,7 +525,19 @@ def decompress_batched(arcs: list, device=None) -> list:
     device = device_lib.resolve(device)
     if arcs[0]["predictor"] == "lorenzo":
         return _lorenzo_decode_group(arcs, device)
-    return [decompress(a, device) for a in arcs]
+    a0 = arcs[0]
+    level = a0["level"]
+    _, phases = _interp_schedule(tuple(a0["shape"]), level)
+    streams = [(entropy.decode_codes(a["codes"]).ravel(),
+                _decode_mask(a["unpred"]),
+                entropy.decode_floats(a["literals"]).ravel()) for a in arcs]
+    rec = _interp_decode_batched(tuple(a0["pad_shape"]),
+                                 tuple(a["eb_int"] for a in arcs), level,
+                                 phases, [a["mean"] for a in arcs], streams,
+                                 device)
+    out = rec.cpu().numpy()[(slice(None),)
+                            + tuple(slice(0, d) for d in a0["shape"])]
+    return [o.astype(np.dtype(a0["dtype"]), copy=False) for o in out]
 
 
 def archive_nbytes(arc: dict) -> int:

@@ -211,10 +211,15 @@ class Archive(Mapping):
                                             self["slice_axis"], self.device)
         return out, e["aux"]
 
-    def decode_all(self) -> dict[str, np.ndarray]:
+    def decode_all(self, *, engine: str = "serial") -> dict[str, np.ndarray]:
         """Decode every field.  A container decodes one field at a time
         through transient reads, keeping only the reconstructions a later
-        field still needs as aux (the footer's ``aux`` map counts them)."""
+        field still needs as aux (the footer's ``aux`` map counts them).
+        ``engine="batched"`` decodes the same way: the batched engine's
+        decode is the serial one
+        (:func:`repro_torch.core.batched_engine.decompress`)."""
+        if engine not in ("serial", "batched"):
+            raise ValueError(f"unknown decode engine {engine!r}")
         if not self.streaming:
             return neurlz.decompress(self._arc, self.device)
         self._check_unblocked()

@@ -1,4 +1,6 @@
-"""NeurLZ end to end (§3.1, Fig. 3), the serial engine.
+"""NeurLZ end to end (§3.1, Fig. 3), the serial engine, and the helpers it
+shares with the batched engine (:mod:`repro_torch.core.batched_engine`,
+``engine="batched"``).
 
 Compression:
   1. the conventional stage (:class:`~repro_torch.core.conv_stage.ConvStage`)
@@ -10,7 +12,8 @@ then, one field at a time:
   2. online training of a skipping-DNN enhancer on the residual ``X − X'``
      (cross-field aux channels optional),
   3. enhancement and regulation in one pass (the ``fused_enhance`` kernel);
-     strict mode stores the outlier coordinates,
+     strict mode stores the outlier coordinates, found with the weights as
+     archived (rounded to ``weight_dtype``), the ones the decoder runs,
   4. conventional payload + weights + outliers packed into one archive.
 
 Decode mirrors it: conventional decode (archives that share a decode key
@@ -64,8 +67,14 @@ class NeurLZConfig:
     cross_field: Mapping[str, tuple] = dataclasses.field(default_factory=dict)
     weight_dtype: str = "float32"       # archive precision of the weights
     widths: tuple = (4, 4, 6, 6, 8)
-    engine: str = "serial"
+    engine: str = "serial"              # serial | batched
     conv_batch: bool = True             # batched conventional stage
+    # The batched engine (repro_torch.core.batched_engine):
+    field_batching: str = "auto"        # auto | unroll | vmap (stacked)
+    group_size: int = 2                 # fields per group (0 = all)
+    prefetch: bool = True               # conventional stage lazily a group
+    field_shard: bool = True            # spread groups over devices: the
+    #   session has one device, so nothing to spread (ROADMAP item 6)
     telemetry: object | None = None     # repro_torch.obs.Telemetry (None:
     #   disabled, every instrumentation point a shared no-op singleton)
     faults: object | None = None        # repro_torch.faults.FaultConfig
@@ -75,12 +84,15 @@ class NeurLZConfig:
         """Raise for settings the port does not run yet."""
         if self.mode not in regulation.MODES:
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.engine != "serial":
-            item = {"batched": "the batched engine",
-                    "streaming": "streaming"}.get(self.engine)
-            if item is None:
-                raise ValueError(f"unknown engine {self.engine!r}")
-            raise unported(f"engine={self.engine!r}", item)
+        if self.engine == "streaming":
+            raise unported("engine='streaming'", "streaming")
+        if self.engine not in ("serial", "batched"):
+            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.field_batching not in ("auto", "unroll", "vmap"):
+            raise ValueError(f"unknown field_batching {self.field_batching!r} "
+                             "(want 'auto', 'unroll' or 'vmap')")
+        if self.group_size < 0:
+            raise ValueError(f"group_size must be >= 0, got {self.group_size}")
         registry.get(self.compressor)   # an unknown name raises
         if not self.learn_residual:
             raise unported("learn_residual=False", "the rest")
@@ -132,6 +144,22 @@ def pack_entry(config: NeurLZConfig, conv_arc: dict, params, stats,
         "learn_residual": config.learn_residual,
         "loss_history": history if collect_stats else [],
     }
+
+
+def archived_model(model: skipping_dnn.SkippingDNN, config: NeurLZConfig,
+                   device) -> skipping_dnn.SkippingDNN:
+    """The enhancer as the decoder rebuilds it from the archive: ``model``
+    itself at float32 weights, else a copy with its weights rounded to
+    ``weight_dtype`` and back.  The encoder predicts and takes the strict
+    outlier mask with it, so a rounded weight cannot push a point past the
+    bound unseen.  (The JAX package masks with the float32 weights.)"""
+    if config.weight_dtype == "float32":
+        return model
+    like = {name: {"b": None, "w": None} for name in skipping_dnn.LAYERS}
+    params = arc_io.unpack_weights(
+        arc_io.pack_weights(model.tree(), config.weight_dtype), like)
+    return skipping_dnn.SkippingDNN(
+        model.cfg, skipping_dnn.params_from_jax(params), device=device)
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -276,7 +304,8 @@ def _enhance_field(x, rec, aux, aux_names, eb, conv_arc, fcfg, net_cfg, init,
         return None, history, samples
 
     ts = time.perf_counter()
-    resid = online_trainer.predict_residual(model, inputs)
+    resid = online_trainer.predict_residual(
+        archived_model(model, fcfg, device), inputs)
     _sync(device)
     t["predict_s"] += time.perf_counter() - ts
 
@@ -306,14 +335,22 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
                   init_params: Mapping | None = None,
                   batch_schedules: Mapping | None = None,
                   bounds=None) -> dict:
-    """Compress one snapshot with the serial engine on ``device`` (``cuda``
-    unless given); returns the archive dict.  ``bounds`` optionally gives
+    """Compress one snapshot with the configured engine (``serial``, or
+    ``batched``: :func:`repro_torch.core.batched_engine.compress`) on
+    ``device`` (``cuda`` unless given); returns the archive dict.  ``bounds`` optionally gives
     per-field :class:`~repro_torch.core.bounds.ErrorBound` specs (the forms
     of :func:`~repro_torch.core.bounds.resolve_bounds`).  ``init_params``
     (field -> parameter tree of numpy arrays) and ``batch_schedules`` (field
     -> ``[epochs, steps, batch]`` indices) fix the enhancer's start and
     batch order, e.g. to the JAX package's."""
     config.check()
+    if config.engine == "batched":
+        from . import batched_engine
+        return batched_engine.compress(
+            fields, rel_eb, abs_eb=abs_eb, config=config,
+            collect_stats=collect_stats, device=device,
+            init_params=init_params, batch_schedules=batch_schedules,
+            bounds=bounds)
     device = device_lib.resolve(device)
     tel = obs_lib.of(config)
     fc = faults_lib.of(config)
@@ -443,9 +480,17 @@ def decode_field_entry(e: dict, rec: np.ndarray, aux: list, slice_axis: int,
     return apply_decoded_entry(e, rec, resid, slice_axis).cpu().numpy()
 
 
-def decompress(arc, device=None) -> dict[str, np.ndarray]:
+def decompress(arc, device=None, *, engine: str = "serial"
+               ) -> dict[str, np.ndarray]:
     """Decode every field of an archive (dict or ``Archive``) on ``device``
-    (``cuda`` unless given)."""
+    (``cuda`` unless given).  ``engine="batched"`` names
+    :func:`repro_torch.core.batched_engine.decompress`, which is this serial
+    decode: every field infers by its single-field graph."""
+    if engine == "batched":
+        from . import batched_engine
+        return batched_engine.decompress(arc, device)
+    if engine != "serial":
+        raise ValueError(f"unknown decode engine {engine!r}")
     device = device_lib.resolve(device)
     slice_axis = arc["slice_axis"]
     recs = compressors.decompress_many(

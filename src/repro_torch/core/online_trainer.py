@@ -13,6 +13,12 @@ reference's formula, cosine-annealed learning rate, mean squared error.
 The batch order comes from a seeded ``torch.Generator`` — or, for parity
 runs, from a precomputed ``[epochs, steps, batch]`` index schedule such as
 the JAX package's ``online_trainer.epoch_batches``.
+
+:func:`train_stacked` trains the enhancers of a group of fields at once
+(the batched engine's stacked strategy, the JAX package's
+``batched_engine._epoch_vmapped``): parameters and Adam's state carry a
+leading field axis, each step is one stacked forward and backward, and the
+loss is a mean per field.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from ..optim import AdamW, cosine_schedule
+from . import skipping_dnn
 from .skipping_dnn import SkippingDNN
 
 
@@ -71,15 +78,15 @@ def batch_loss(model: SkippingDNN, xb: torch.Tensor, yb: torch.Tensor
     return torch.mean(torch.square(model(xb) - yb))
 
 
-def train(model: SkippingDNN, inputs, targets, cfg: TrainConfig, *,
-          schedule=None, on_epoch=None) -> list[float]:
+def train_epochs(model: SkippingDNN, inputs, targets, cfg: TrainConfig, *,
+                 schedule=None, on_epoch=None) -> torch.Tensor:
     """Train ``model`` in place for ``cfg.epochs``; returns the per-epoch
-    mean loss.  ``inputs``/``targets`` are host arrays or tensors; they move
-    to the model's device once.  ``schedule`` optionally fixes the batch
-    indices, ``[epochs, steps, batch]``.  ``on_epoch`` is an optional host
-    callback ``(epoch, model, loss)`` after every epoch (the telemetry
-    sample-PSNR hook); the epoch's mean loss is read on the host anyway, so
-    it adds no wait for the device."""
+    mean losses ``[epochs]``, left on the device.  ``inputs``/``targets``
+    are host arrays or tensors; they move to the model's device once.
+    ``schedule`` optionally fixes the batch indices, ``[epochs, steps,
+    batch]``.  ``on_epoch`` is an optional host callback ``(epoch, model,
+    loss)`` after every epoch (the telemetry sample-PSNR hook), which reads
+    each epoch's loss on the host."""
     device = next(model.parameters()).device
     xs = torch.as_tensor(inputs, device=device)
     ys = torch.as_tensor(targets, device=device)
@@ -93,7 +100,7 @@ def train(model: SkippingDNN, inputs, targets, cfg: TrainConfig, *,
     params = list(model.parameters())
     opt = AdamW(params)
     gen = torch.Generator().manual_seed(cfg.seed)
-    history = []
+    history = torch.empty(cfg.epochs, device=device)
     for e in range(cfg.epochs):
         if schedule is None:
             idx = torch.randperm(n, generator=gen)[:steps * batch]
@@ -107,9 +114,86 @@ def train(model: SkippingDNN, inputs, targets, cfg: TrainConfig, *,
             grads = torch.autograd.grad(loss, params)
             opt.step(grads, lr=lr_fn(e * steps + s))
             losses[s] = loss.detach()
-        history.append(float(losses.mean()))
+        history[e] = losses.mean()
         if on_epoch is not None:
-            on_epoch(e, model, history[-1])
+            on_epoch(e, model, float(history[e]))
+    return history
+
+
+def train(model: SkippingDNN, inputs, targets, cfg: TrainConfig, *,
+          schedule=None, on_epoch=None) -> list[float]:
+    """:func:`train_epochs`, its per-epoch mean losses read on the host."""
+    return [float(v) for v in train_epochs(
+        model, inputs, targets, cfg, schedule=schedule,
+        on_epoch=on_epoch).cpu().tolist()]
+
+
+def stacked_batch_loss(params, xb: torch.Tensor, yb: torch.Tensor, *,
+                       regulated: bool = True, skip: bool = True
+                       ) -> torch.Tensor:
+    """Mean squared error of each field, ``[F]``, for stacked ``xb [F, B,
+    H, W, C]`` and ``yb [F, B, H, W, 1]``.  Each field's mean is
+    :func:`batch_loss`'s arithmetic on that field's own tensors, so it
+    sums in the single-field order."""
+    pred = skipping_dnn.forward_stacked(params, xb, regulated=regulated,
+                                        skip=skip)
+    return torch.stack([torch.mean(torch.square(pred[f] - yb[f]))
+                        for f in range(pred.shape[0])])
+
+
+def train_stacked(params, inputs, targets, cfg: TrainConfig, *,
+                  n_valid=None, regulated: bool = True, skip: bool = True,
+                  schedule=None) -> torch.Tensor:
+    """Train F enhancers at once for ``cfg.epochs``, in place: ``params`` is
+    a stacked tree (:func:`skipping_dnn.stack_params`) of leaf tensors on
+    the device, ``inputs [F, N, H, W, C]`` and ``targets [F, N, H, W, 1]``
+    padded to the group's largest slice count N.  ``n_valid`` gives each
+    field's own count (default N): one permutation a epoch is shared, and
+    field f takes ``idx % n_valid[f]``.  The cosine horizon is ``steps *
+    epochs`` of the padded count, for the whole group.  The batch order is
+    the serial trainer's (a fresh ``Generator(cfg.seed)``), or
+    ``schedule [epochs, steps, batch]``.  Returns the per-epoch mean losses
+    ``[epochs, F]``, left on the device."""
+    leaves = skipping_dnn.tree_leaves(params)
+    device = leaves[0].device
+    xs = torch.as_tensor(inputs, device=device)
+    ys = torch.as_tensor(targets, device=device)
+    nf, n = xs.shape[:2]
+    batch = min(cfg.batch, n)
+    steps = max(1, n // batch)
+    if schedule is not None and tuple(np.shape(schedule)) != (cfg.epochs, steps, batch):
+        raise ValueError(f"schedule must be [{cfg.epochs}, {steps}, {batch}], "
+                         f"got {tuple(np.shape(schedule))}")
+    counts = torch.as_tensor(n_valid if n_valid is not None else [n] * nf,
+                             dtype=torch.int64, device=device)
+    # Row of field f's slice i in the flattened [F*N] batch of slices.
+    base = (torch.arange(nf, device=device) * n)[:, None]
+    xs_flat = xs.reshape(nf * n, *xs.shape[2:])
+    ys_flat = ys.reshape(nf * n, *ys.shape[2:])
+    lr_fn = cosine_schedule(cfg.lr, steps * cfg.epochs)
+    opt = AdamW(leaves)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    history = torch.empty((cfg.epochs, nf), device=device)
+    for e in range(cfg.epochs):
+        if schedule is None:
+            idx = torch.randperm(n, generator=gen)[:steps * batch]
+        else:
+            idx = torch.from_numpy(np.array(schedule[e], dtype=np.int64))
+        idx = idx.reshape(steps, batch).to(device)
+        losses = torch.empty((nf, steps), device=device)
+        for s in range(steps):
+            rows = (idx[s][None, :] % counts[:, None] + base).reshape(-1)
+            xb = xs_flat.index_select(0, rows).reshape(nf, batch, *xs.shape[2:])
+            yb = ys_flat.index_select(0, rows).reshape(nf, batch, *ys.shape[2:])
+            loss = stacked_batch_loss(params, xb, yb, regulated=regulated,
+                                      skip=skip)
+            grads = torch.autograd.grad(loss.sum(), leaves)
+            opt.step(grads, lr=lr_fn(e * steps + s))
+            losses[:, s] = loss.detach()
+        for f in range(nf):
+            # Each field's mean over its contiguous row: the serial
+            # trainer's reduction of its [steps] losses.
+            history[e, f] = losses[f].mean()
     return history
 
 

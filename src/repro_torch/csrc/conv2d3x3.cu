@@ -29,8 +29,14 @@
 //    layer shapes, so every loop unrolls; other shapes take an
 //    instantiation with Cin and Cout known only at run time.
 //  * 32-bit index arithmetic (the wrapper keeps tensors under 2^31
-//    elements), no division by a run-time size: the grid is (column tiles,
-//    row tiles, images).
+//    elements): the grid is (column tiles, row tiles, images).
+//  * A grouped launch (conv2d3x3_grouped_launch) convolves F fields, each
+//    with its own weights and bias, in one grid: the images are
+//    field-major, [F*N, H, W, Cin], and block z takes field z / N's weights
+//    ([F, 3, 3, Cin, Cout]) and bias ([F, Cout]).  A block's work and its
+//    order of sums are those of the single-field launch on that field's
+//    images, so field f's output equals that launch's byte for byte; the
+//    single-field entry is the grouped one at F = 1.
 //  * Outputs leave as 16-byte stores where the address allows, bias and
 //    ReLU fused.
 // The small layers (down3, down4 at N=10) are one wave of blocks; they sit
@@ -65,9 +71,9 @@ constexpr int fwd_smem_floats(int cin) {
 template <int CIN_T, int COUT_T, int S>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ y, int h,
-                   int wd, int cin_rt, int cout_rt, int ho, int wo,
-                   int pad_top, int pad_left, int relu) {
+                   const float* __restrict__ b, float* __restrict__ y,
+                   int n_per_field, int h, int wd, int cin_rt, int cout_rt,
+                   int ho, int wo, int pad_top, int pad_left, int relu) {
   using T = FwdTile<S>;
   constexpr int MAXC = CIN_T > 0 ? CIN_T : kMaxCin;
   constexpr int MAXO = COUT_T > 0 ? COUT_T : kMaxCout;
@@ -80,6 +86,9 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __shared__ float sb[MAXO];
 
   const int n = blockIdx.z;
+  const int field = n / n_per_field;
+  w += field * (9 * cin * cout);
+  b += field * cout;
   const int oh0 = blockIdx.y * T::TH, ow0 = blockIdx.x * T::TW;
   const int iy0 = oh0 * S - pad_top, ix0 = ow0 * S - pad_left;
   const int rs = skewed_row(T::HC * cin);
@@ -168,23 +177,25 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 template <int CIN_T, int COUT_T, int S>
 cudaError_t launch(const float* x, const float* w, const float* b, float* y,
-                   int n, int h, int wd, int cin, int cout, int ho, int wo,
-                   int pad_top, int pad_left, int relu, cudaStream_t stream) {
+                   int fields, int n, int h, int wd, int cin, int cout, int ho,
+                   int wo, int pad_top, int pad_left, int relu,
+                   cudaStream_t stream) {
   using T = FwdTile<S>;
   static int granted = 48 * 1024;
   const int smem = fwd_smem_floats<S>(cin) * 4;
   cudaError_t err =
       allow_smem(conv3x3_fwd_kernel<CIN_T, COUT_T, S>, smem, granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((wo + T::TW - 1) / T::TW, (ho + T::TH - 1) / T::TH, n);
+  const dim3 grid((wo + T::TW - 1) / T::TW, (ho + T::TH - 1) / T::TH,
+                  fields * n);
   conv3x3_fwd_kernel<CIN_T, COUT_T, S><<<grid, kThreads, smem, stream>>>(
-      x, w, b, y, h, wd, cin, cout, ho, wo, pad_top, pad_left, relu);
+      x, w, b, y, n, h, wd, cin, cout, ho, wo, pad_top, pad_left, relu);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(const float*, const float*, const float*,
                                float*, int, int, int, int, int, int, int, int,
-                               int, int, cudaStream_t);
+                               int, int, int, cudaStream_t);
 
 // The enhancer's layers (conv_in at c_in 1-3, down1-4, conv_out with and
 // without skip connections), then Cin and Cout at run time.
@@ -207,22 +218,38 @@ Launch pick(int cin, int cout, int stride) {
 }  // namespace
 }  // namespace conv3x3
 
-// Returns a cudaError_t: 0 when the launch was accepted.
+// F fields of n images each, field-major: x [F*n, h, wd, cin], w [F, 3, 3,
+// cin, cout], b [F, cout], y [F*n, ho, wo, cout].  Returns a cudaError_t: 0
+// when the launch was accepted.
+extern "C" int conv2d3x3_grouped_launch(const void* x, const void* w,
+                                        const void* b, void* y, int fields,
+                                        int n, int h, int wd, int cin,
+                                        int cout, int ho, int wo, int stride,
+                                        int pad_top, int pad_left, int relu,
+                                        int device, void* stream) {
+  using namespace conv3x3;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cin < 1 || cin > kMaxCin || cout < 1 || cout > kMaxCout ||
+      (stride != 1 && stride != 2) || fields < 1 || n < 1 ||
+      n > 65535 / fields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(pick(cin, cout, stride)(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(y), fields, n, h, wd,
+      cin, cout, ho, wo, pad_top, pad_left, relu,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// One field: the grouped launch at F = 1.
 extern "C" int conv2d3x3_launch(const void* x, const void* w, const void* b,
                                 void* y, int n, int h, int wd, int cin,
                                 int cout, int ho, int wo, int stride,
                                 int pad_top, int pad_left, int relu,
                                 int device, void* stream) {
-  using namespace conv3x3;
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cin < 1 || cin > kMaxCin || cout < 1 || cout > kMaxCout ||
-      (stride != 1 && stride != 2) || n > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(pick(cin, cout, stride)(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(y), n, h, wd, cin,
-      cout, ho, wo, pad_top, pad_left, relu, static_cast<cudaStream_t>(stream)));
+  return conv2d3x3_grouped_launch(x, w, b, y, 1, n, h, wd, cin, cout, ho, wo,
+                                  stride, pad_top, pad_left, relu, device,
+                                  stream);
 }
 
 extern "C" const char* conv2d3x3_error_string(int code) {

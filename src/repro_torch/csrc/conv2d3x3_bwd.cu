@@ -66,6 +66,17 @@
 // running kernel: a launch the runtime refuses never starts and leaves it
 // at 0, and a kernel that faults leaves the CUDA context unusable (a sticky
 // error), so no later call reads a stale count.
+//
+// A grouped call (conv2d3x3_bwd_grouped_launch) takes F fields, each with
+// its own weights: x, dx [F*N, H, W, Cin], y, g [F*N, Ho, Wo, Cout], w, dw
+// [F, 3, 3, Cin, Cout], db [F, Cout], field-major.  blockIdx.y is the
+// field (the stand-alone dgrad launch takes its z over all fields' images,
+// each block the weights of its image's field); each field has its own rows of partial sums and its own
+// ticket, which its last wgrad block wraps back to 0.  A field's blocks,
+// their partition of the work and the order of every sum are those of a
+// single-field call on that field's slices, so field f's gradients equal
+// that call's byte for byte; the single-field entry is the grouped one at
+// F = 1.
 
 #include "conv2d3x3_common.cuh"
 
@@ -86,10 +97,30 @@ struct BwdArgs {
   float *dx, *dw, *db, *partial;
   unsigned* ticket;
   int n, h, wd, cin, cout, ho, wo, pad_top, pad_left, relu;
+  int partial_rows;   // rows of partial sums a field owns
   int nd;    // dgrad blocks (0 without dx)
   int nw;    // wgrad blocks: slots * tap groups
   int kt4;   // floats a row of partials holds: 9*cin*cout + cout, rounded up to 4
 };
+
+// The arguments of field f of a grouped call: every pointer moved to that
+// field's slice (32-bit offsets: the wrapper keeps each tensor under 2^31
+// elements).
+__device__ __forceinline__ BwdArgs field_args(const BwdArgs& a, int f) {
+  BwdArgs b = a;
+  const int xs = a.n * a.h * a.wd * a.cin, gs = a.n * a.ho * a.wo * a.cout;
+  const int ws = 9 * a.cin * a.cout;
+  b.x += f * xs;
+  b.y += f * gs;
+  b.g += f * gs;
+  if (b.dx != nullptr) b.dx += f * xs;
+  b.w += f * ws;
+  b.dw += f * ws;
+  b.db += f * a.cout;
+  b.partial += f * (a.partial_rows * a.kt4);
+  b.ticket += f;
+  return b;
+}
 
 template <int CIN_T, int COUT_T, int S>
 struct DgradTile {
@@ -212,10 +243,11 @@ __device__ __forceinline__ void dgrad_stage(const BwdArgs& a, int img, int ih0,
   }
 }
 
-// The weights, once a block: a thread's share into registers where it is
+// The weights w, once a block: a thread's share into registers where it is
 // small (wr), else all of them into shared memory as [tap][co][ci] (sw).
 template <int CIN_T, int COUT_T, int S>
-__device__ __forceinline__ void dgrad_weights(const BwdArgs& a, float* sw,
+__device__ __forceinline__ void dgrad_weights(const BwdArgs& a, const float* w,
+                                              float* sw,
                                               float (&wr)[DgradTile<CIN_T, COUT_T, S>::NWR]) {
   using T = DgradTile<CIN_T, COUT_T, S>;
   constexpr int MAXO = T::MAXO, QW = T::QW;
@@ -229,12 +261,12 @@ __device__ __forceinline__ void dgrad_weights(const BwdArgs& a, float* sw,
       for (int co = 0; co < MAXO; ++co)
 #pragma unroll
         for (int k = 0; k < QW; ++k)
-          wr[(tap * MAXO + co) * QW + k] = a.w[(tap * cin + q * QW + k) * cout + co];
+          wr[(tap * MAXO + co) * QW + k] = w[(tap * cin + q * QW + k) * cout + co];
   } else {
     for (int i = threadIdx.x; i < 9 * cin * cout; i += kThreads) {
       const int tap = i / (cin * cout), rem = i - tap * (cin * cout);
       const int ci = rem / cout, co = rem - ci * cout;
-      sw[(tap * cout + co) * cin + ci] = a.w[i];
+      sw[(tap * cout + co) * cin + ci] = w[i];
     }
   }
 }
@@ -355,7 +387,7 @@ __device__ __forceinline__ void dgrad_role(const BwdArgs& a, float* smem) {
     cp_async_commit();
   }
   float wr[T::NWR];   // while the first copies are in flight
-  dgrad_weights<CIN_T, COUT_T, S>(a, sw, wr);
+  dgrad_weights<CIN_T, COUT_T, S>(a, a.w, sw, wr);
 
   int it_tile = 0;
   for (int t = blockIdx.x; t < tiles; t += nd, ++it_tile) {
@@ -659,11 +691,14 @@ conv3x3_bwd_dgrad_kernel(const BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
   float* sg = sw + T::WFLOATS;
+  // g, y and dx are field-major, so the image z of all fields' images
+  // indexes them as it is; only the weights are the field's own.
   const int img = blockIdx.z, ih0 = blockIdx.y * T::TH, iw0 = blockIdx.x * T::TW;
   dgrad_stage<CIN_T, COUT_T, S>(a, img, ih0, iw0, sg);
   cp_async_commit();
   float wr[T::NWR];
-  dgrad_weights<CIN_T, COUT_T, S>(a, sw, wr);
+  const int cin = CIN_T > 0 ? CIN_T : a.cin, cout = COUT_T > 0 ? COUT_T : a.cout;
+  dgrad_weights<CIN_T, COUT_T, S>(a, a.w + img / a.n * (9 * cin * cout), sw, wr);
   cp_async_wait<0>();
   __syncthreads();
   dgrad_tile<CIN_T, COUT_T, S>(a, sg, sw, wr, img, ih0, iw0);
@@ -671,9 +706,10 @@ conv3x3_bwd_dgrad_kernel(const BwdArgs a) {
 
 template <int CIN_T, int COUT_T, int S>
 __global__ void __launch_bounds__(kThreads, (WgradTile<CIN_T, COUT_T, S>::BPS))
-conv3x3_bwd_kernel(const BwdArgs a) {
+conv3x3_bwd_kernel(const BwdArgs args) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const BwdArgs a = field_args(args, blockIdx.y);
   if (static_cast<int>(blockIdx.x) < a.nd) {
     dgrad_role<CIN_T, COUT_T, S>(a, smem);
   } else {
@@ -687,7 +723,7 @@ conv3x3_bwd_kernel(const BwdArgs a) {
 // the dx tiles are more than twice the dgrad blocks, dgrad in the same
 // grid would walk tile after tile at one block an SM; there it is a launch
 // of its own before wgrad's, one tile a block (two launches a call; its
-// grid's z is the image, so at most 65535 images).
+// grid's z is the image, so at most 65535 images over all fields).
 template <int CIN_T, int COUT_T, int S>
 int dgrad_tiles(int n, int h, int wd) {
   using D = DgradTile<CIN_T, COUT_T, S>;
@@ -706,7 +742,7 @@ int bwd_kernels(int n, int h, int wd, int need_dx) {
 }
 
 template <int CIN_T, int COUT_T, int S>
-cudaError_t launch_bwd(BwdArgs a, int need_dx, int partial_rows,
+cudaError_t launch_bwd(BwdArgs a, int need_dx, int fields,
                        cudaStream_t stream) {
   using D = DgradTile<CIN_T, COUT_T, S>;
   using W = WgradTile<CIN_T, COUT_T, S>;
@@ -716,10 +752,12 @@ cudaError_t launch_bwd(BwdArgs a, int need_dx, int partial_rows,
   const int dblocks = dgrad_blocks<CIN_T, COUT_T, S>();
   a.nd = need_dx ? (dtiles < dblocks ? dtiles : dblocks) : 0;
   if (bwd_kernels<CIN_T, COUT_T, S>(a.n, a.h, a.wd, need_dx) == 2) {
+    if (a.n > 65535 / fields) return cudaErrorInvalidValue;
     cudaError_t err = allow_smem(conv3x3_bwd_dgrad_kernel<CIN_T, COUT_T, S>,
                                  4 * D::FLOATS_ONE, granted_d);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.wd + D::TW - 1) / D::TW, (a.h + D::TH - 1) / D::TH, a.n);
+    const dim3 grid((a.wd + D::TW - 1) / D::TW, (a.h + D::TH - 1) / D::TH,
+                    fields * a.n);
     conv3x3_bwd_dgrad_kernel<CIN_T, COUT_T, S><<<grid, kThreads, 4 * D::FLOATS_ONE, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -729,13 +767,14 @@ cudaError_t launch_bwd(BwdArgs a, int need_dx, int partial_rows,
   int nws = (cap - a.nd) / W::NG;
   if (nws > kWgradRows) nws = kWgradRows;
   if (nws > wtiles) nws = wtiles;
-  if (nws < 1 || nws > partial_rows) return cudaErrorInvalidValue;
+  if (nws < 1 || nws > a.partial_rows) return cudaErrorInvalidValue;
   a.nw = nws * W::NG;
   const int wf = wgrad_floats<CIN_T, COUT_T, S>(a.cin);
   const int smem = 4 * (wf > D::FLOATS ? wf : D::FLOATS);
   cudaError_t err = allow_smem(conv3x3_bwd_kernel<CIN_T, COUT_T, S>, smem, granted);
   if (err != cudaSuccess) return err;
-  conv3x3_bwd_kernel<CIN_T, COUT_T, S><<<a.nd + a.nw, kThreads, smem, stream>>>(a);
+  conv3x3_bwd_kernel<CIN_T, COUT_T, S>
+      <<<dim3(a.nd + a.nw, fields), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -768,29 +807,45 @@ Plan pick(int cin, int cout, int stride) {
 }  // namespace
 }  // namespace conv3x3
 
-// dgrad (when need_dx) and wgrad in one launch, on one stream.  partial
-// holds partial_rows rows of kt4 floats (9*cin*cout + cout rounded up to a
-// multiple of 4); ticket is a counter that is 0 between calls (the kernel
-// leaves it so).  Returns a cudaError_t: 0 when the launch was accepted.
-extern "C" int conv2d3x3_bwd_launch(
+// dgrad (when need_dx) and wgrad of F fields, in one launch (two where
+// dgrad runs apart), on one stream.  partial holds F blocks of partial_rows
+// rows of kt4 floats (9*cin*cout + cout rounded up to a multiple of 4);
+// ticket holds F counters that are 0 between calls (the kernel leaves them
+// so).  n is the images of one field.  Returns a cudaError_t: 0 when the
+// launch was accepted.
+extern "C" int conv2d3x3_bwd_grouped_launch(
     const void* x, const void* w, const void* y, const void* g, void* dx,
-    void* dw, void* db, void* partial, void* ticket, int partial_rows, int n,
-    int h, int wd, int cin, int cout, int ho, int wo, int stride, int pad_top,
-    int pad_left, int relu, int need_dx, int device, void* stream) {
+    void* dw, void* db, void* partial, void* ticket, int partial_rows,
+    int fields, int n, int h, int wd, int cin, int cout, int ho, int wo,
+    int stride, int pad_top, int pad_left, int relu, int need_dx, int device,
+    void* stream) {
   using namespace conv3x3;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cin < 1 || cin > kMaxCin || cout < 1 || cout > kMaxCout ||
-      (stride != 1 && stride != 2))
+      (stride != 1 && stride != 2) || fields < 1 || fields > 65535 || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{static_cast<const float*>(x), static_cast<const float*>(w),
             static_cast<const float*>(y), static_cast<const float*>(g),
             static_cast<float*>(dx), static_cast<float*>(dw),
             static_cast<float*>(db), static_cast<float*>(partial),
             static_cast<unsigned*>(ticket), n, h, wd, cin, cout, ho, wo,
-            pad_top, pad_left, relu, 0, 0, (9 * cin * cout + cout + 3) & ~3};
+            pad_top, pad_left, relu, partial_rows, 0, 0,
+            (9 * cin * cout + cout + 3) & ~3};
   return static_cast<int>(pick(cin, cout, stride).launch(
-      a, need_dx, partial_rows, static_cast<cudaStream_t>(stream)));
+      a, need_dx, fields, static_cast<cudaStream_t>(stream)));
+}
+
+// One field: the grouped launch at F = 1.
+extern "C" int conv2d3x3_bwd_launch(
+    const void* x, const void* w, const void* y, const void* g, void* dx,
+    void* dw, void* db, void* partial, void* ticket, int partial_rows, int n,
+    int h, int wd, int cin, int cout, int ho, int wo, int stride, int pad_top,
+    int pad_left, int relu, int need_dx, int device, void* stream) {
+  return conv2d3x3_bwd_grouped_launch(x, w, y, g, dx, dw, db, partial, ticket,
+                                      partial_rows, 1, n, h, wd, cin, cout, ho,
+                                      wo, stride, pad_top, pad_left, relu,
+                                      need_dx, device, stream);
 }
 
 // Kernels one call of conv2d3x3_bwd_launch launches at these shapes (1 or

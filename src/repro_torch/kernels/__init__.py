@@ -5,13 +5,15 @@ CPU tensors take the plain version.
 Each wrapper counts the calls that launched its kernel in a module-level
 integer, so a run can show that its path went through the kernels.
 ``KERNELS`` maps each kernel to its module and the name of its counter
-there (``conv2d3x3`` holds the forward and the backward, ``lorenzo3d``
-the encode and the decode).
+there (``conv2d3x3`` holds the forward and the backward, single-field
+and grouped, ``lorenzo3d`` the encode and the decode).
 """
 from . import conv2d3x3, fused_enhance, lorenzo3d
 
 KERNELS = {"conv2d3x3": (conv2d3x3, "launches"),
            "conv2d3x3_bwd": (conv2d3x3, "bwd_launches"),
+           "conv2d3x3_grouped": (conv2d3x3, "grouped_launches"),
+           "conv2d3x3_grouped_bwd": (conv2d3x3, "grouped_bwd_launches"),
            "fused_enhance": (fused_enhance, "launches"),
            "lorenzo3d_fwd": (lorenzo3d, "fwd_launches"),
            "lorenzo3d_inv": (lorenzo3d, "inv_launches")}

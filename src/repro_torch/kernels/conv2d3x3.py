@@ -21,6 +21,16 @@ blocks (none when the input needs no gradient) and wgrad blocks in one
 grid, the last wgrad block adding the per-block partial sums; at the
 stride-2 layers whose wgrad blocks fill an SM, dgrad is a launch of its
 own before it (``csrc/conv2d3x3_bwd.cu``).
+
+Grouped calls (:func:`conv2d3x3_grouped`, :func:`conv2d3x3_bwd_grouped`,
+:class:`Conv3x3Grouped`) convolve F fields in one launch, each field with
+its own weights: ``x`` is ``(F*N, H, W, Cin)`` field-major, ``w`` is
+``(F, 3, 3, Cin, Cout)``, ``b`` is ``(F, Cout)``.  They replace the JAX
+package's ``conv2d3x3`` under ``jax.vmap`` over fields (its stacked
+training, ``repro/core/batched_engine.py::_epoch_vmapped``).  Field f's
+output equals a single-field call on that field's slices byte for byte:
+the same blocks sum it in the same order.  Their plain versions are the
+single-field plain versions applied field by field.
 """
 from __future__ import annotations
 
@@ -41,12 +51,15 @@ WGRAD_ROWS = 264
 # backward calls (one launch each, or two with dgrad apart).
 launches = 0
 bwd_launches = 0
+grouped_launches = 0
+grouped_bwd_launches = 0
 
 _lib = None
 _bwd_lib = None
-# The backward's ticket counter, one per (device, stream): zero between
-# calls, because the last block of each launch wraps it back to zero.
-_tickets: dict[tuple[int, int], torch.Tensor] = {}
+# The backward's ticket counters, one a field, per (device, stream): zero
+# between calls, because the last block of each field wraps its ticket back
+# to zero; grown when a call has more fields.
+_group_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def same_pads(size: int, stride: int) -> tuple[int, int, int]:
@@ -165,6 +178,9 @@ def _load():
         lib.conv2d3x3_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.conv2d3x3_launch.restype = ctypes.c_int
+        lib.conv2d3x3_grouped_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+        lib.conv2d3x3_grouped_launch.restype = ctypes.c_int
         lib.conv2d3x3_error_string.argtypes = [ctypes.c_int]
         lib.conv2d3x3_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -178,6 +194,9 @@ def _load_bwd():
         lib.conv2d3x3_bwd_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
         lib.conv2d3x3_bwd_launch.restype = ctypes.c_int
+        lib.conv2d3x3_bwd_grouped_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+        lib.conv2d3x3_bwd_grouped_launch.restype = ctypes.c_int
         lib.conv2d3x3_bwd_error_string.argtypes = [ctypes.c_int]
         lib.conv2d3x3_bwd_error_string.restype = ctypes.c_char_p
         lib.conv2d3x3_bwd_kernels.argtypes = [ctypes.c_int] * 7
@@ -258,17 +277,15 @@ def conv2d3x3_bwd(g, y, x, w, *, stride: int = 1, relu: bool = True,
         return dx, dw.zero_(), db.zero_()
     partial = torch.empty((WGRAD_ROWS, (9 * cin * cout + cout + 3) // 4 * 4),
                           dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    key = (x.device.index or 0, stream)
-    if key not in _tickets:
-        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=x.device)
+    tickets = group_tickets(x.device, 1)
     lib = _load_bwd()
     err = lib.conv2d3x3_bwd_launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), g.data_ptr(),
         dx.data_ptr() if need_dx else None, dw.data_ptr(), db.data_ptr(),
-        partial.data_ptr(), _tickets[key].data_ptr(), WGRAD_ROWS, n, h, wd,
+        partial.data_ptr(), tickets.data_ptr(), WGRAD_ROWS, n, h, wd,
         cin, cout, want[1], want[2], stride, same_pads(h, stride)[1],
-        same_pads(wd, stride)[1], int(relu), int(need_dx), key[0], stream)
+        same_pads(wd, stride)[1], int(relu), int(need_dx),
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("conv2d3x3_bwd launch failed: "
                            + lib.conv2d3x3_bwd_error_string(err).decode())
@@ -299,3 +316,178 @@ def conv3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
     """Differentiable 3×3 conv (the skipping DNN's conv layers)."""
     return Conv3x3.apply(x.contiguous(), w.contiguous(), b.contiguous(),
                          stride, relu)
+
+
+# ---- grouped calls: F fields, each with its own weights, one launch ----
+
+def _fields(x, w):
+    """``(F, N)`` of a grouped call: ``x`` holds F*N images."""
+    if w.dim() != 5:
+        raise ValueError(f"grouped w must be (F,3,3,Cin,Cout), got {tuple(w.shape)}")
+    nf = w.shape[0]
+    if nf < 1 or x.dim() != 4 or x.shape[0] % nf:
+        raise ValueError(f"grouped x must be (F*N,H,W,Cin) for F={nf}, got "
+                         f"{tuple(x.shape)}")
+    return nf, x.shape[0] // nf
+
+
+def _split(t, nf: int) -> list:
+    """The field-major batch ``t`` as its ``nf`` fields' slices."""
+    return list(t.reshape(nf, -1, *t.shape[1:]).unbind(0))
+
+
+def conv2d3x3_grouped_plain(x, w, b, *, stride: int = 1, relu: bool = True):
+    """Plain version of the grouped forward: :func:`conv2d3x3_plain` field
+    by field, stacked field-major."""
+    nf, _ = _fields(x, w)
+    return torch.cat([conv2d3x3_plain(xf, w[f], b[f], stride=stride, relu=relu)
+                      for f, xf in enumerate(_split(x, nf))])
+
+
+def conv2d3x3_grouped_dgrad_plain(g, y, w, x_shape, *, stride: int = 1,
+                                  relu: bool = True):
+    """Plain version of the grouped dgrad, field by field."""
+    nf = w.shape[0]
+    shape = (x_shape[0] // nf, *x_shape[1:])
+    return torch.cat([conv2d3x3_dgrad_plain(gf, yf, w[f], shape, stride=stride,
+                                            relu=relu)
+                      for f, (gf, yf) in enumerate(zip(_split(g, nf),
+                                                       _split(y, nf)))])
+
+
+def conv2d3x3_grouped_wgrad_plain(g, y, x, nf: int, *, stride: int = 1,
+                                  relu: bool = True):
+    """Plain version of the grouped wgrad: ``(dw [F,3,3,Cin,Cout],
+    db [F,Cout])``, field by field."""
+    per = [conv2d3x3_wgrad_plain(gf, yf, xf, stride=stride, relu=relu)
+           for gf, yf, xf in zip(_split(g, nf), _split(y, nf), _split(x, nf))]
+    return torch.stack([p[0] for p in per]), torch.stack([p[1] for p in per])
+
+
+def _check_grouped(x, w, b, stride):
+    nf, _ = _fields(x, w)
+    _check(x, w[0], None if b is None else b[0], stride)
+    if b is not None and tuple(b.shape) != (nf, w.shape[-1]):
+        raise ValueError(f"grouped b must be (F,Cout) = {(nf, w.shape[-1])}, "
+                         f"got {tuple(b.shape)}")
+    ts = (w,) if b is None else (w, b)
+    if any(t.dtype != torch.float32 or t.device != x.device for t in ts):
+        raise TypeError("grouped conv2d3x3 takes float32 tensors on one device")
+    return nf
+
+
+def conv2d3x3_grouped(x, w, b, *, stride: int = 1, relu: bool = True
+                      ) -> torch.Tensor:
+    """Forward of F fields' 3×3 convs in one launch: the CUDA kernel for
+    CUDA tensors, :func:`conv2d3x3_grouped_plain` for CPU tensors."""
+    global grouped_launches
+    nf = _check_grouped(x, w, b, stride)
+    if x.device.type == "cpu":
+        return conv2d3x3_grouped_plain(x, w, b, stride=stride, relu=relu)
+    x, w, b = _cuda_operands("conv2d3x3_grouped", x, w, b)
+    n, h, wd, _ = x.shape
+    y = torch.empty((n, same_pads(h, stride)[0], same_pads(wd, stride)[0],
+                     w.shape[-1]), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = _load()
+    err = lib.conv2d3x3_grouped_launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), nf, n // nf,
+        h, wd, x.shape[3], y.shape[3], y.shape[1], y.shape[2], stride,
+        same_pads(h, stride)[1], same_pads(wd, stride)[1], int(relu),
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("conv2d3x3_grouped launch failed: "
+                           + lib.conv2d3x3_error_string(err).decode())
+    grouped_launches += 1
+    return y
+
+
+def group_tickets(device, nf: int) -> torch.Tensor:
+    """The backward's ticket counters of the current stream on ``device``,
+    at least ``nf`` of them (one a field), each 0 between calls."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index or 0, stream)
+    t = _group_tickets.get(key)
+    if t is None or t.numel() < nf:
+        t = torch.zeros(max(nf, 4), dtype=torch.int32, device=device)
+        _group_tickets[key] = t
+    return t
+
+
+def conv2d3x3_bwd_grouped(g, y, x, w, *, stride: int = 1, relu: bool = True,
+                          need_dx: bool = True):
+    """Gradients ``(dx, dw [F,3,3,Cin,Cout], db [F,Cout])`` of F fields'
+    convs in one call (one launch, or two where dgrad runs apart, as for
+    one field of this shape); ``dx`` is None unless ``need_dx``.  The CUDA
+    kernels for CUDA tensors, the plain versions for CPU tensors."""
+    global grouped_bwd_launches
+    nf = _check_grouped(x, w, None, stride)
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    want = (n, same_pads(h, stride)[0], same_pads(wd, stride)[0], cout)
+    if tuple(g.shape) != want or tuple(y.shape) != want:
+        raise ValueError(f"g and y must be {want}, got {tuple(g.shape)} and "
+                         f"{tuple(y.shape)}")
+    if g.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError("conv2d3x3_bwd_grouped takes float32 tensors")
+    if not (g.device == y.device == x.device):
+        raise ValueError("g, y, x and w must share one device")
+    if x.device.type == "cpu":
+        dx = (conv2d3x3_grouped_dgrad_plain(g, y, w, x.shape, stride=stride,
+                                            relu=relu) if need_dx else None)
+        return (dx, *conv2d3x3_grouped_wgrad_plain(g, y, x, nf, stride=stride,
+                                                   relu=relu))
+    x, w, y, g = _cuda_operands("conv2d3x3_bwd_grouped", x, w, y, g)
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w)
+    db = torch.empty((nf, cout), dtype=torch.float32, device=x.device)
+    if g.numel() == 0:
+        if need_dx:
+            dx.zero_()
+        return dx, dw.zero_(), db.zero_()
+    partial = torch.empty((nf, WGRAD_ROWS, (9 * cin * cout + cout + 3) // 4 * 4),
+                          dtype=torch.float32, device=x.device)
+    tickets = group_tickets(x.device, nf)
+    lib = _load_bwd()
+    err = lib.conv2d3x3_bwd_grouped_launch(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), g.data_ptr(),
+        dx.data_ptr() if need_dx else None, dw.data_ptr(), db.data_ptr(),
+        partial.data_ptr(), tickets.data_ptr(), WGRAD_ROWS, nf, n // nf, h,
+        wd, cin, cout, want[1], want[2], stride, same_pads(h, stride)[1],
+        same_pads(wd, stride)[1], int(relu), int(need_dx), x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("conv2d3x3_bwd_grouped launch failed: "
+                           + lib.conv2d3x3_bwd_error_string(err).decode())
+    grouped_bwd_launches += 1
+    return dx, dw, db
+
+
+class Conv3x3Grouped(torch.autograd.Function):
+    """Autograd around :func:`conv2d3x3_grouped` and
+    :func:`conv2d3x3_bwd_grouped`."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride: int, relu: bool):
+        y = conv2d3x3_grouped(x, w, b, stride=stride, relu=relu)
+        ctx.save_for_backward(x, w, y)
+        ctx.stride, ctx.relu = stride, relu
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx, dw, db = conv2d3x3_bwd_grouped(g.contiguous(), y, x, w,
+                                           stride=ctx.stride, relu=ctx.relu,
+                                           need_dx=need_x)
+        return dx, dw if need_w else None, db if need_b else None, None, None
+
+
+def conv3x3_grouped(x, w, b, *, stride: int = 1, relu: bool = True
+                    ) -> torch.Tensor:
+    """Differentiable grouped 3×3 conv (the stacked skipping DNN's conv
+    layers): ``x (F*N,H,W,Cin)``, ``w (F,3,3,Cin,Cout)``, ``b (F,Cout)``."""
+    return Conv3x3Grouped.apply(x.contiguous(), w.contiguous(), b.contiguous(),
+                                stride, relu)

@@ -32,7 +32,9 @@ torch.set_num_threads(1)
 
 def test_registry_names_and_errors():
     assert registry.names() == ref_registry.names()
-    assert not registry.get("szlike").batchable          # interp: per field
+    # interp stacks a group as the reference's does
+    assert registry.get("szlike").batchable == ref_registry.get("szlike").batchable
+    assert registry.get("szlike").batch_supports(np.float32)
     assert registry.get("szlike-lorenzo").batch_supports(np.float64)
     with pytest.raises(ValueError, match="unknown compressor"):
         compressors.compress(np.zeros((4, 4), np.float32), 1e-3,
@@ -87,7 +89,7 @@ def _mixed_snapshot():
     return fields, {"c": (0.05, "relaxed")}
 
 
-@pytest.mark.parametrize("compressor", ["szlike-lorenzo", "zfplike"])
+@pytest.mark.parametrize("compressor", ["szlike", "szlike-lorenzo", "zfplike"])
 def test_stage_plans_counts_and_archives_as_reference(compressor):
     fields, own = _mixed_snapshot()
     specs = {n: (abs_eb, mode) for n, (abs_eb, mode) in own.items()}

@@ -119,7 +119,7 @@ def test_conv_bwd_back_to_back_shapes_match_alone(cuda_device):
         torch.cuda.synchronize()
     for c in cases[::-1] + cases[1::2] + cases[::2]:
         assert _bwd_bytes(cuda_device, c, need_dx=c[3] != 1) == alone[c], c
-    assert all(int(t) == 0 for t in conv._tickets.values())
+    assert all(int(t.abs().sum()) == 0 for t in conv._group_tickets.values())
 
 
 @pytest.mark.cuda
@@ -162,6 +162,168 @@ def test_conv_autograd_on_gpu(cuda_device, need_dx):
     want = torch.autograd.grad(conv.conv2d3x3_plain(x, wt, b, stride=2), inputs, g)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
+
+
+# The enhancer's six training layers at N=10 per field and one odd shape:
+# (N, H, W, Cin, Cout, stride).
+GROUPED_CASES = [(10, 512, 512, 1, 4, 1), (10, 512, 512, 4, 4, 2),
+                 (10, 256, 256, 4, 6, 2), (10, 128, 128, 6, 6, 2),
+                 (10, 64, 64, 6, 8, 2), (10, 512, 512, 8, 1, 1),
+                 (2, 17, 13, 5, 7, 2)]
+
+
+def _grouped_inputs(device, nf, n, h, w, cin, cout, stride, relu):
+    """F fields' x (field-major), weights, biases, the single-field
+    kernel's y and an output gradient g."""
+    gen = torch.Generator().manual_seed(nf * 100 + h + cin)
+    x = torch.randn((nf * n, h, w, cin), generator=gen).to(device)
+    wt = (torch.randn((nf, 3, 3, cin, cout), generator=gen) * 0.3).to(device)
+    b = (torch.randn((nf, cout), generator=gen) * 0.1).to(device)
+    y = torch.cat([conv.conv2d3x3(x[f * n:(f + 1) * n], wt[f], b[f],
+                                  stride=stride, relu=relu) for f in range(nf)])
+    g = torch.randn(tuple(y.shape), generator=gen).to(device)
+    return x, wt, b, y, g
+
+
+def _bytes(t):
+    return t.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_grouped_conv_equals_single_launches(cuda_device, case, nf):
+    """Field f of one grouped forward equals the single-field kernel on
+    field f byte for byte, two calls agree, and it is within float32
+    tolerance of the plain grouped version."""
+    n, h, w, cin, cout, stride = case
+    for relu in (True, False):
+        x, wt, b, y, _ = _grouped_inputs(cuda_device, nf, *case, relu)
+        before = (conv.grouped_launches, conv.launches)
+        got = conv.conv2d3x3_grouped(x, wt, b, stride=stride, relu=relu)
+        again = conv.conv2d3x3_grouped(x, wt, b, stride=stride, relu=relu)
+        torch.cuda.synchronize()
+        assert (conv.grouped_launches, conv.launches) == (before[0] + 2,
+                                                          before[1])
+        assert _bytes(got) == _bytes(y) == _bytes(again)
+        want = conv.conv2d3x3_grouped_plain(x, wt, b, stride=stride, relu=relu)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_grouped_conv_bwd_equals_single_launches(cuda_device, case, nf,
+                                                 need_dx):
+    """Field f's dx, dw and db of one grouped backward equal a single-field
+    call on field f byte for byte; two calls agree; each field's ticket is
+    back at 0; the plain grouped versions agree within the tolerances of
+    the single-field test."""
+    n, h, w, cin, cout, stride = case
+    x, wt, b, y, g = _grouped_inputs(cuda_device, nf, *case, True)
+    singles = [conv.conv2d3x3_bwd(g[f * n:(f + 1) * n], y[f * n:(f + 1) * n],
+                                  x[f * n:(f + 1) * n], wt[f], stride=stride,
+                                  need_dx=need_dx) for f in range(nf)]
+    before = conv.grouped_bwd_launches
+    dx, dw, db = conv.conv2d3x3_bwd_grouped(g, y, x, wt, stride=stride,
+                                            need_dx=need_dx)
+    again = conv.conv2d3x3_bwd_grouped(g, y, x, wt, stride=stride,
+                                       need_dx=need_dx)
+    torch.cuda.synchronize()
+    assert conv.grouped_bwd_launches == before + 2
+    assert (dx is None) == (not need_dx)
+    for f, (sdx, sdw, sdb) in enumerate(singles):
+        if need_dx:
+            assert _bytes(dx[f * n:(f + 1) * n]) == _bytes(sdx)
+        assert _bytes(dw[f]) == _bytes(sdw) and _bytes(db[f]) == _bytes(sdb)
+    for a, e in zip((dx, dw, db), again):
+        assert (a is None and e is None) or _bytes(a) == _bytes(e)
+    tickets = conv.group_tickets(cuda_device, nf)
+    assert int(tickets.abs().sum()) == 0
+    if need_dx:
+        want_dx = conv.conv2d3x3_grouped_dgrad_plain(g, y, wt, x.shape,
+                                                     stride=stride)
+        torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    want_dw, want_db = conv.conv2d3x3_grouped_wgrad_plain(g, y, x, nf,
+                                                          stride=stride)
+    terms_dw, terms_db = conv.conv2d3x3_grouped_wgrad_plain(
+        conv.relu_mask(g, y, True).abs(), y, x.abs(), nf, stride=stride,
+        relu=False)
+    assert ((dw - want_dw).abs() <= 1e-5 * terms_dw + 1e-6).all()
+    assert ((db - want_db).abs() <= 1e-5 * terms_db + 1e-6).all()
+
+
+@pytest.mark.cuda
+def test_grouped_conv_autograd_on_gpu(cuda_device):
+    """Through the grouped autograd function: one grouped launch each way,
+    gradients equal to the single-field function's byte for byte."""
+    gen = torch.Generator().manual_seed(5)
+    nf, n = 3, 2
+    x = torch.randn((nf * n, 17, 13, 4), generator=gen).to(cuda_device)
+    wt = (torch.randn((nf, 3, 3, 4, 6), generator=gen) * 0.3).to(cuda_device)
+    b = (torch.randn((nf, 6), generator=gen) * 0.1).to(cuda_device)
+    g = torch.randn((nf * n, 9, 7, 6), generator=gen).to(cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (x, wt, b)]
+    before = (conv.grouped_launches, conv.grouped_bwd_launches)
+    got = torch.autograd.grad(conv.conv3x3_grouped(*leaves, stride=2), leaves, g)
+    torch.cuda.synchronize()
+    assert (conv.grouped_launches, conv.grouped_bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    for f in range(nf):
+        one = [t[f * n:(f + 1) * n].clone().requires_grad_() if i == 0
+               else t[f].clone().requires_grad_()
+               for i, t in enumerate((x, wt, b))]
+        want = torch.autograd.grad(conv.conv3x3(*one, stride=2), one,
+                                   g[f * n:(f + 1) * n])
+        assert _bytes(got[0][f * n:(f + 1) * n]) == _bytes(want[0])
+        assert _bytes(got[1][f]) == _bytes(want[1])
+        assert _bytes(got[2][f]) == _bytes(want[2])
+
+
+@pytest.mark.cuda
+def test_batched_session_on_gpu(cuda_device):
+    """``engine="batched"`` on the card: ``vmap`` trains through the grouped
+    kernels and holds the strict bound; ``auto`` gives the serial engine's
+    entries where the parity check holds; both decode as the serial decode
+    does, byte for byte."""
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import archive as arc_io
+    from repro_torch.core import batched_engine
+    from repro_torch.data import fields as fields_lib
+
+    fields = fields_lib.make_fields("hurricane", (6, 40, 36), seed=2)
+    serial = repro_torch.NeurLZ(epochs=2, device=cuda_device).compress(
+        fields, rel_eb=1e-3)
+    kernels.reset_launch_counts()
+    sess = repro_torch.NeurLZ(epochs=2, device=cuda_device, engine="batched",
+                              field_batching="vmap", group_size=0)
+    arc = sess.compress(fields, rel_eb=1e-3)
+    counts = kernels.launch_counts()
+    assert counts["conv2d3x3_grouped"] > 0 and counts["conv2d3x3_grouped_bwd"] > 0
+    assert arc["timing"]["strategies"] == {"cloud,precip,w": "vmap"}
+    dec = sess.decompress(arc)
+    for name, x in fields.items():
+        assert np.abs(dec[name].astype(np.float64) - x).max() <= \
+            arc["fields"][name]["abs_eb"]
+    serial_dec = serial.decode_all()
+    batched_dec = serial.decode_all(engine="batched")
+    assert all(_bytes_np(batched_dec[n]) == _bytes_np(serial_dec[n])
+               for n in fields)
+    auto = repro_torch.NeurLZ(epochs=2, device=cuda_device, engine="batched",
+                              group_size=0).compress(fields, rel_eb=1e-3)
+    net = serial["fields"]["w"]["net"]
+    from repro_torch.core.skipping_dnn import SkippingDNNConfig
+    parity = batched_engine.stacked_bit_parity(
+        SkippingDNNConfig(c_in=net["c_in"]), (40, 36), 6, 3, cuda_device)
+    assert auto["timing"]["strategies"]["cloud,precip,w"] == (
+        "vmap" if parity else "unroll")
+    assert arc_io.dumps(auto["fields"]) == arc_io.dumps(serial["fields"])
+
+
+def _bytes_np(a):
+    return np.ascontiguousarray(a).tobytes()
 
 
 def _canaries():

@@ -195,15 +195,25 @@ def test_other_modes_decode_within_their_bound(mode, factor):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"engine": "batched"}, "batched engine"),
     ({"engine": "streaming"}, "streaming"),
     ({"max_resident_bytes": 1}, "streaming"),
-    ({"group_size": 4}, "batched engine"),
     ({"learn_residual": False}, "the rest"),
 ])
 def test_unported_settings_name_their_roadmap_item(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         repro_torch.NeurLZ(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"engine": "batched"},
+                                    {"engine": "batched", "group_size": 4}])
+def test_batched_settings_give_the_serial_bytes(kwargs):
+    """The batched engine's settings are accepted; its default strategy
+    gives the serial engine's entries."""
+    sub = {k: FIELDS[k] for k in ("cloud", "w")}
+    want = repro_torch.NeurLZ(epochs=1, device="cpu").compress(sub, rel_eb=REL_EB)
+    got = repro_torch.NeurLZ(epochs=1, device="cpu", **kwargs).compress(
+        sub, rel_eb=REL_EB)
+    assert arc_io.dumps(got["fields"]) == arc_io.dumps(want["fields"])
 
 
 def test_make_fields_is_the_reference_generator():

@@ -193,6 +193,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     gx, gw, gb = (t.requires_grad_() for t in (x.clone(), wt.clone(), b.clone()))
     port_conv.conv3x3(gx, gw, gb).sum().backward()
     assert kernels.launch_counts() == {"conv2d3x3": 0, "conv2d3x3_bwd": 0,
+                                       "conv2d3x3_grouped": 0,
+                                       "conv2d3x3_grouped_bwd": 0,
                                        "fused_enhance": 0, "lorenzo3d_fwd": 0,
                                        "lorenzo3d_inv": 0}
     with pytest.raises(ValueError, match="output channels"):
