@@ -49,24 +49,34 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    retry), at DURABLE_EPOCHS epochs; the entries written one by one into
    an fsync'ed ``NLZSTRM2`` container, opened lazily and decoded field by
    field; ``cloud`` and ``w`` must equal, entry and decode bit for bit, the
-   serial engine's at those epochs (``NeurLZ.compress`` of the two fields
-   alone, without telemetry or faults), ``precip`` its
+   serial engine's at those epochs (``NeurLZ.compress`` of the three
+   fields without telemetry or faults), ``precip`` its
    conventional reconstruction; then ``verify`` on the container and on
    a copy with a flipped bit, and ``repair=True`` on a copy cut before its
    footer; the Chrome trace goes to ``build/chip_smoke/durable_trace.json``;
 7. the batched path on the same snapshot: ``NeurLZ(engine="batched",
    field_batching="vmap", group_size=0)``, one group of three fields
-   trained stacked through the grouped kernels, decoded with
-   ``engine="batched"``; the bound on every field, decode equal to the
-   encoder's final field bit for bit, conventional payloads equal to the
-   main path's, and the main path's archive decoded by the batched engine
-   equal to its serial decode byte for byte; ``stacked_bit_parity`` at the
-   group's signature: where it holds, every entry must equal the main
-   path's by SHA-256, else each field's PSNR and bit rate are printed
-   beside the main path's;
-8. a ``zfplike`` conventional round trip on one full field;
-9. the launch count of every kernel over each path, counted from 0 just
-   before the path: each kernel of a path must have launched in it.
+   trained stacked through the grouped kernels at DURABLE_EPOCHS epochs,
+   decoded with ``engine="batched"``; the bound on every field, decode
+   equal to the encoder's final field bit for bit, conventional payloads
+   equal to the main path's, and the main path's archive decoded by the
+   batched engine equal to its serial decode byte for byte;
+   ``stacked_bit_parity`` at the group's signature: where it holds, every
+   entry must equal the durable path's serial reference (same epochs) by
+   SHA-256, else each field's PSNR and bit rate are printed beside it;
+8. the streaming path on the same snapshot: the fields written as ``.npy``
+   files into ``build/chip_smoke/npys/``, ``NeurLZ(group_size=1,
+   max_resident_bytes=STREAM_BUDGET).compress_to`` of that directory into
+   a container (the three fields' working sets exceed the budget), decoded
+   by ``streaming.iter_decompress`` and one ROI of ``w``; every entry must
+   equal the main path's by SHA-256, every decode its decode, the ROI its
+   slice, the ledger's peak stay within the budget and the ledger evict;
+   it prints the compress and decode times, the writer thread's busy and
+   put-wait seconds and the ledger's peak;
+9. a ``zfplike`` conventional round trip on one full field;
+10. the launch count of every kernel over each path, counted from 0 just
+    before the path: each kernel of a path must have launched in it; and
+    each path's ``torch.cuda.max_memory_allocated``, reset before it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
 summed from a torch.profiler trace that must hold every launch of the
@@ -430,9 +440,10 @@ def conv_bwd_phase(dev, report: dict) -> dict:
 
 
 GROUP_F = 3    # fields of the batched path's one group
-# Training cut from the paper's 100 epochs on two paths, so that the run
-# stays inside its time limit on a slower host; the main and batched paths
-# train 100.
+# Training cut from the paper's 100 epochs on three paths, so that the run
+# stays inside its time limit on a slower host (the batched path at
+# DURABLE_EPOCHS, held against the durable path's serial reference); the
+# main and streaming paths train 100.
 LORENZO_EPOCHS = 5
 DURABLE_EPOCHS = 10
 
@@ -1040,6 +1051,7 @@ def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
     path.parent.mkdir(parents=True, exist_ok=True)
 
     kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sess = repro_torch.NeurLZ(epochs=epochs, device=dev)
     arc = sess.compress(fields, rel_eb=1e-3)
@@ -1054,11 +1066,13 @@ def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    device_peak = torch.cuda.max_memory_allocated()
     kept = {"entries": {n: arc_io.dumps(e) for n, e in opened["fields"].items()},
             "conv": {n: arc_io.dumps(e["conv"])
                      for n, e in opened["fields"].items()}, "epochs": epochs,
             "decoded": decoded, "compress_s": t_compress,
-            "timing": arc["timing"], "path": path}
+            "timing": arc["timing"], "path": path,
+            "device_peak_bytes": device_peak}
 
     per_field = {}
     for name, x in fields.items():
@@ -1107,6 +1121,7 @@ def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
            "compress_MB_per_s": raw_mb / t_compress,
            "decode_MB_per_s": raw_mb / t_decode, "stages": timing,
            "per_field": per_field, "launches": launches,
+           "device_peak_bytes": device_peak,
            "decode_equals_encoder": True, "train_step_trace": trace,
            "conv_stage_profile": conv_profile}
     print("main_path", json.dumps({k: v for k, v in out.items()
@@ -1129,6 +1144,7 @@ def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
     raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
     path = ROOT / "build" / "chip_smoke" / "hurricane_lorenzo.nlz"
     kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sess = repro_torch.NeurLZ(compressor="szlike-lorenzo", conv_batch=True,
                               epochs=epochs, device=dev)
@@ -1142,6 +1158,7 @@ def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    device_peak = torch.cuda.max_memory_allocated()
 
     stage = arc["timing"]["conv_stage"]
     if (stage["groups"], stage["calls"], stage["batched_fields"]) != (1, 1, 3):
@@ -1180,24 +1197,27 @@ def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
            "compress_MB_per_s": raw_mb / t_compress,
            "decode_MB_per_s": raw_mb / t_decode, "stages": dict(arc["timing"]),
            "per_field": per_field, "launches": launches,
-           "decode_equals_encoder": True}
+           "device_peak_bytes": device_peak, "decode_equals_encoder": True}
     print("lorenzo_path", json.dumps({k: v for k, v in out.items()
                                       if k != "per_field"}))
     report["lorenzo_path"] = out
     return launches
 
 
-def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
+def durable_path(dev, fields, epochs: int, main: dict, report: dict
+                 ) -> tuple[dict, dict]:
     """The main path's configuration with telemetry and faults, through a
     durable container: ``train.precip`` is injected (``precip`` degrades to
     conv-only), the first ``decode.entry`` read is injected and healed by a
-    retry.  ``main`` is what :func:`main_path` kept."""
+    retry.  ``main`` is what :func:`main_path` kept.  Returns ``(launches,
+    serial)``, ``serial`` the serial engine's entries of all three fields at
+    these epochs (packed), which the batched path is held against."""
     import torch
     import repro_torch
     from repro_torch import kernels
     from repro_torch.compressors import szlike
     from repro_torch.core import archive as arc_io
-    from repro_torch.core import regulation
+    from repro_torch.core import metrics, regulation
 
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1210,6 +1230,7 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
         retry=repro_torch.RetryPolicy())
 
     kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sess = repro_torch.NeurLZ(epochs=epochs, device=dev, telemetry=tel,
                               faults=faults)
@@ -1237,6 +1258,7 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    device_peak = torch.cuda.max_memory_allocated()
 
     def check(ok: bool, what: str) -> None:
         if not ok:
@@ -1246,15 +1268,21 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     check(arc["timing"]["degraded_fields"] == ["precip"],
           f"degraded {arc['timing']['degraded_fields']}")
 
-    # What the serial engine writes for the trained fields at these epochs,
+    # What the serial engine writes for the three fields at these epochs,
     # without telemetry or faults: each field's entry depends on that field
     # alone (its own bound, conventional payload and fresh generator).
-    ref_fields = {n: x for n, x in fields.items() if n != "precip"}
     ref_sess = repro_torch.NeurLZ(epochs=epochs, device=dev)
-    ref_arc = ref_sess.compress(ref_fields, rel_eb=1e-3)
+    ref_arc = ref_sess.compress(fields, rel_eb=1e-3)
     ref_dec = ref_sess.decompress(ref_arc)
     reference = {n: (arc_io.dumps(ref_arc["fields"][n]), ref_dec[n])
-                 for n in ref_fields}
+                 for n in fields}
+    serial = {"epochs": epochs,
+              "entries": {n: reference[n][0] for n in fields},
+              "per_field": {n: {"psnr_enhanced": metrics.psnr(x, ref_dec[n]),
+                                "bitrate": ref_arc.bitrate(n)["bitrate"],
+                                "final_loss": ref_arc["fields"][n][
+                                    "loss_history"][-1]}
+                            for n, x in fields.items()}}
     per_field = {}
     for name, x in fields.items():
         e = opened.entry(name)
@@ -1356,19 +1384,23 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
            "sample_psnr_last": {n: tel.trace(n)[-1]["sample_psnr"]
                                 for n in trained},
            "per_field": per_field, "launches": launches,
+           "device_peak_bytes": device_peak,
            "verify_flipped": rep["entries"]["w"], "trace": str(trace_path)}
     print("durable_spans", json.dumps(out["spans"]))
     print("durable_path", json.dumps({k: v for k, v in out.items()
                                       if k not in ("per_field", "spans")}))
     report["durable_path"] = out
-    return launches
+    return launches, serial
 
 
-def batched_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
+def batched_path(dev, fields, epochs: int, main: dict, serial: dict,
+                 report: dict) -> dict:
     """``NeurLZ(engine="batched", field_batching="vmap", group_size=0)``:
     the snapshot's three fields as one group trained stacked through the
     grouped kernels, decoded with ``engine="batched"``.  ``main`` is what
-    :func:`main_path` kept."""
+    :func:`main_path` kept (its conventional payloads and archive);
+    ``serial`` the serial engine's entries at ``epochs``, from
+    :func:`durable_path`."""
     import hashlib
     import torch
     import repro_torch
@@ -1378,9 +1410,13 @@ def batched_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     from repro_torch.core import batched_engine, metrics, neurlz
     from repro_torch.core import online_trainer, regulation
 
+    if serial["epochs"] != epochs:
+        raise ValueError(f"batched path at {epochs} epochs, its serial "
+                         f"reference at {serial['epochs']}")
     raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
     path = ROOT / "build" / "chip_smoke" / "hurricane_batched.nlz"
     kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sess = repro_torch.NeurLZ(engine="batched", field_batching="vmap",
                               group_size=0, epochs=epochs, device=dev)
@@ -1394,6 +1430,7 @@ def batched_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    device_peak = torch.cuda.max_memory_allocated()
 
     def check(ok: bool, what: str) -> None:
         if not ok:
@@ -1440,20 +1477,21 @@ def batched_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
         check(int(mask.sum()) == e["outliers"]["count"],
               f"{name}: outlier mask differs from the archive's")
         sha = hashlib.sha256(arc_io.dumps(e)).hexdigest()
-        main_sha = hashlib.sha256(main["entries"][name]).hexdigest()
+        serial_sha = hashlib.sha256(serial["entries"][name]).hexdigest()
         if parity:
-            check(sha == main_sha, f"{name}: stacked_bit_parity holds but the "
-                                   "entry differs from the main path's")
+            check(sha == serial_sha, f"{name}: stacked_bit_parity holds but "
+                  "the entry differs from the serial engine's")
+        ref = serial["per_field"][name]
         per_field[name] = {
             "abs_eb": eb, "max_err_over_eb": chk["max_abs_err"] / eb,
             "psnr_enhanced": metrics.psnr(x, decoded[name]),
-            "psnr_main": main["per_field"][name]["psnr_enhanced"],
+            "psnr_serial": ref["psnr_enhanced"],
             "bitrate": opened.bitrate(name)["bitrate"],
-            "bitrate_main": main["per_field"][name]["bitrate"],
+            "bitrate_serial": ref["bitrate"],
             "outlier_rate": e["outliers"]["count"] / x.size,
             "final_loss": e["loss_history"][-1],
-            "final_loss_main": main["per_field"][name]["final_loss"],
-            "entry_sha256": sha, "entry_equals_main": sha == main_sha}
+            "final_loss_serial": ref["final_loss"],
+            "entry_sha256": sha, "entry_equals_serial": sha == serial_sha}
         print("batched_field", name, json.dumps(per_field[name]))
     out = {"engine": "batched", "field_batching": "vmap", "group_size": 0,
            "epochs": epochs, "rel_eb": 1e-3, "mode": "strict",
@@ -1463,10 +1501,111 @@ def batched_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
            "decode_MB_per_s": raw_mb / t_decode, "stages": dict(arc["timing"]),
            "stacked_bit_parity": parity,
            "main_compress_s": main["compress_s"], "per_field": per_field,
-           "launches": launches, "decode_equals_encoder": True}
+           "launches": launches, "device_peak_bytes": device_peak,
+           "decode_equals_encoder": True}
     print("batched_path", json.dumps({k: v for k, v in out.items()
                                       if k != "per_field"}))
     report["batched_path"] = out
+    return launches
+
+
+STREAM_BUDGET = 900_000_000   # bytes: 2.25 of one field's working set
+STREAM_ROI = (slice(10, 20), slice(None), slice(100, 300))
+
+
+def streaming_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
+    """``NeurLZ(group_size=1, max_resident_bytes=STREAM_BUDGET).compress_to``
+    of the snapshot written as ``.npy`` files (an ``NpyDirSource``) into a
+    container, decoded by ``iter_decompress`` and one ROI.  One field's
+    working set on the residency ledger is x 100 MB + rec 100 MB + dataset
+    200 MB: the three fields' 1.2 GB exceed the budget, so the pipeline
+    must evict.  ``main`` is what :func:`main_path` kept: every entry must
+    equal its entry by SHA-256, every decode its decode."""
+    import hashlib
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import kernels, streaming
+    from repro_torch.core import archive as arc_io
+    from repro_torch.core import regulation
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    npy_dir = out_dir / "npys"
+    npy_dir.mkdir(parents=True, exist_ok=True)
+    for name, x in fields.items():
+        np.save(npy_dir / f"{name}.npy", x)
+    path = out_dir / "hurricane_streaming.nlzs"
+    raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
+    tel = repro_torch.Telemetry(
+        repro_torch.TelemetryConfig(learning_traces=False))
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = repro_torch.NeurLZ(epochs=epochs, group_size=1,
+                              max_resident_bytes=STREAM_BUDGET, device=dev,
+                              telemetry=tel)
+    src = streaming.NpyDirSource(str(npy_dir), names=list(fields))
+    arc = sess.compress_to(src, path, rel_eb=1e-3)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+    compress_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    decoded = dict(streaming.iter_decompress(arc))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    roi = arc.decode("w", roi=STREAM_ROI)
+    torch.cuda.synchronize()
+    t_roi = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    device_peak = torch.cuda.max_memory_allocated()
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"streaming path: {what}")
+
+    rep = arc.report
+    check(rep["peak_resident_bytes"] <= STREAM_BUDGET,
+          f"ledger peak {rep['peak_resident_bytes']} > {STREAM_BUDGET}")
+    evictions = tel.counters.get("stream.evictions", 0)
+    check(evictions > 0, "the ledger evicted nothing")
+    per_field = {}
+    for name, x in fields.items():
+        e = arc.entry(name)
+        sha = hashlib.sha256(arc_io.dumps(e)).hexdigest()
+        main_sha = hashlib.sha256(main["entries"][name]).hexdigest()
+        check(sha == main_sha, f"{name}: entry differs from the main path's")
+        check(decoded[name].tobytes() == main["decoded"][name].tobytes(),
+              f"{name}: decode differs from the main path's")
+        chk = regulation.check_bound(x, decoded[name], e["abs_eb"], "strict")
+        check(chk["ok"], f"{name}: max error {chk['max_abs_err']} > "
+                         f"{e['abs_eb']}")
+        per_field[name] = {"entry_sha256": sha,
+                           "max_err_over_eb": chk["max_abs_err"] / e["abs_eb"]}
+    check(roi.tobytes() == main["decoded"]["w"][STREAM_ROI].tobytes(),
+          "the ROI decode differs from the main path's slice")
+    arc.close()
+    writer = {k: rep[k] for k in ("writer_busy_s", "writer_put_wait_s",
+                                  "writer_close_wait_s", "bytes_written")}
+    out = {"engine": "streaming", "group_size": 1, "epochs": epochs,
+           "rel_eb": 1e-3, "mode": "strict", "budget_bytes": STREAM_BUDGET,
+           "peak_resident_bytes": rep["peak_resident_bytes"],
+           "evictions": evictions, **writer,
+           "compress_s": t_compress, "decode_s": t_decode, "roi_s": t_roi,
+           "compress_MB_per_s": raw_mb / t_compress,
+           "decode_MB_per_s": raw_mb / t_decode,
+           "main_compress_s": main["compress_s"],
+           "stages": {k: rep[k] for k in ("total_s", "conv_s", "train_s",
+                                          "conv_stage", "spans")},
+           "device_peak_bytes_compress": compress_peak,
+           "device_peak_bytes": device_peak,
+           "main_device_peak_bytes": main["device_peak_bytes"],
+           "per_field": per_field, "launches": launches,
+           "entries_equal_main": True}
+    print("streaming_path", json.dumps({k: v for k, v in out.items()
+                                        if k != "per_field"}))
+    report["streaming_path"] = out
     return launches
 
 
@@ -1550,23 +1689,31 @@ def main() -> int:
     # Each path runs with the counts set to 0 just before it; every kernel
     # of a path must have launched in it.
     main_launches, main_kept = main_path(dev, fields, args.epochs, report)
+    cut = min(args.epochs, DURABLE_EPOCHS)
+    lorenzo_launches = lorenzo_path(dev, fields,
+                                    min(args.epochs, LORENZO_EPOCHS), report)
+    durable_launches, serial_cut = durable_path(dev, fields, cut, main_kept,
+                                                report)
     by_path = {"main": main_launches,
-               "lorenzo": lorenzo_path(dev, fields,
-                                       min(args.epochs, LORENZO_EPOCHS), report),
-               "durable": durable_path(dev, fields,
-                                       min(args.epochs, DURABLE_EPOCHS),
-                                       main_kept, report),
-               "batched": batched_path(dev, fields, args.epochs, main_kept,
-                                       report)}
+               "lorenzo": lorenzo_launches,
+               "durable": durable_launches,
+               "batched": batched_path(dev, fields, cut, main_kept,
+                                       serial_cut, report),
+               "streaming": streaming_path(dev, fields, args.epochs,
+                                           main_kept, report)}
     single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
     path_kernels = {"main": single,
                     "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),
                     "durable": single,
                     "batched": ("conv2d3x3", "conv2d3x3_grouped",
-                                "conv2d3x3_grouped_bwd", "fused_enhance")}
+                                "conv2d3x3_grouped_bwd", "fused_enhance"),
+                    "streaming": single}
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")
+    report["device_peak_bytes"] = {
+        p: report[f"{p}_path"]["device_peak_bytes"] for p in by_path}
+    print("device_peak_bytes", json.dumps(report["device_peak_bytes"]))
     zfplike_round_trip(dev, fields["w"], report)
 
     # The backward replaces no TPU kernel of its own: it is the gradient of

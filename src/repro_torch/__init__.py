@@ -12,13 +12,20 @@ caller passes ``device="cpu"``; on CUDA tensors the ``conv2d3x3``,
 ``NeurLZ(telemetry=..., faults=...)`` traces a run and degrades a failed
 field to conv-only; ``Archive.open`` reads whole-dict files and the
 streaming containers ``NLZSTRM1``/``NLZSTRM2`` (lazily, with ``repair=True``
-salvage and ``verify()``).
+salvage and ``verify()``).  ``engine="batched"`` trains groups of fields
+stacked; ``NeurLZ.compress_to`` (and ``engine="streaming"``) streams a
+snapshot out of core under ``max_resident_bytes``, with ``resume=True``,
+and ``Archive.decode(name, roi=...)`` decodes one region.
+``learn_residual=False`` runs the paper's direct-learning ablation.
 
 Subpackages: ``core`` (enhancer, trainer, regulation, conventional stage,
-bounds, engine, archive and containers), ``compressors`` (registry, szlike,
-zfplike and the byte layer), ``kernels`` (CUDA kernels and their build),
-``obs`` (telemetry), ``faults`` (injection, retry, degradation), ``optim``,
-``data`` (synthetic fields).
+bounds, serial and batched engines, archive and containers),
+``streaming`` (lazy field sources, the bounded-memory scheduler and its
+residency ledger, the async writer, ``iter_decompress``), ``compressors``
+(registry, szlike, zfplike and the byte layer), ``kernels`` (CUDA kernels
+and their build), ``obs`` (telemetry), ``faults`` (injection, retry,
+degradation, the straggler watchdog of ``checkpoint``), ``optim``,
+``data`` (the synthetic Nyx, Miranda and Hurricane fields).
 """
 from .api import (EngineConfig, ModelConfig, NeurLZ, RegulationConfig,
                   join_config, open, split_config)

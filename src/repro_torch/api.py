@@ -14,15 +14,20 @@
     arc = repro_torch.NeurLZ(telemetry=tel, faults=faults).compress(
         fields, rel_eb=1e-3)   # a failed field degrades to conv-only
 
+    sess = repro_torch.NeurLZ(group_size=1, max_resident_bytes=900_000_000)
+    arc = sess.compress_to("snapshot_npys/", "snap.nlzs", rel_eb=1e-3)
+    arc.report["peak_resident_bytes"]                # out of core, lazy
+    w = arc.decode("w", roi=(slice(10, 20),))        # one region
+
 Configuration is split by concern as in the JAX package — ``ModelConfig``
 (the enhancer and its training), ``EngineConfig`` (which engine runs),
 ``RegulationConfig`` (the regulation mode) — and flattens losslessly into
-:class:`NeurLZConfig`.  Settings of engines and features not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item.
+:class:`NeurLZConfig`.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Mapping
 
 from . import device as device_lib
@@ -31,7 +36,6 @@ from .core import neurlz
 from .core.archive_api import Archive
 from .core.neurlz import NeurLZConfig
 from .obs import telemetry as obs
-from .roadmap import unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +58,7 @@ class ModelConfig:
 class EngineConfig:
     """Which engine executes a compression run."""
 
-    engine: str = "serial"              # serial | batched
+    engine: str = "serial"              # serial | batched | streaming
     compressor: str = "szlike"          # szlike | szlike-lorenzo | zfplike
     field_batching: str = "auto"        # auto | unroll | vmap (stacked)
     group_size: int = 2                 # fields per batched group (0 = all)
@@ -62,6 +66,7 @@ class EngineConfig:
     field_shard: bool = True            # spread groups over devices (one
     #   device a session: nothing to spread)
     conv_batch: bool = True             # batched conventional stage
+    max_resident_bytes: int = 0         # streaming residency budget (0: off)
     telemetry: object | None = None     # repro_torch.Telemetry (None: off)
     faults: object | None = None        # repro_torch.FaultConfig (None:
     #   no injection, no retries, conv-only degradation on)
@@ -75,11 +80,6 @@ class RegulationConfig:
 _MODEL_FIELDS = tuple(f.name for f in dataclasses.fields(ModelConfig))
 _ENGINE_FIELDS = tuple(f.name for f in dataclasses.fields(EngineConfig))
 _REG_FIELDS = tuple(f.name for f in dataclasses.fields(RegulationConfig))
-
-# Knobs of the JAX package's engines that the port does not have yet.
-_UNPORTED_KNOBS = {
-    "max_resident_bytes": "streaming",
-}
 
 
 def join_config(model: ModelConfig, engine: EngineConfig,
@@ -123,8 +123,6 @@ class NeurLZ:
                 raise TypeError("repro_torch has no 'lowering' switch: the "
                                 "tensors' device picks the kernel (cuda) or "
                                 "the plain version (cpu)")
-            elif k in _UNPORTED_KNOBS:
-                raise unported(f"{k}=", _UNPORTED_KNOBS[k])
             else:
                 raise TypeError(f"unknown NeurLZ config field {k!r}")
         self.model = dataclasses.replace(model or m0, **mkw)
@@ -159,6 +157,40 @@ class NeurLZ:
             bounds=bounds)
         return self._adopt(Archive.from_dict(arc, device=self.device))
 
+    def compress_to(self, source, sink, bounds=None, *,
+                    rel_eb: float | None = None,
+                    abs_eb: float | None = None,
+                    collect_stats: bool = True,
+                    resume: bool = False) -> Archive:
+        """Stream-compress ``source`` into the container ``sink``, out of
+        core, on this session's device.
+
+        ``source`` is anything :func:`repro_torch.streaming.as_source`
+        accepts (a dict of arrays, a directory of ``.npy`` files, a
+        ``ChunkedFieldSource`` such as ``BlockedSource``); ``sink`` a path
+        or a binary file object.  Runs the bounded-memory streaming
+        pipeline whatever ``engine`` says, under ``max_resident_bytes``,
+        and returns a **lazy** :class:`Archive` over the written container
+        with the pipeline's report as ``archive.report``.
+
+        ``resume=True``: if ``sink`` holds a partial container of an
+        interrupted run of the *same* configuration, its sealed entries are
+        salvaged and only the remaining fields compressed; the finished
+        container's entries equal an uninterrupted run's.  A configuration
+        mismatch is an error.
+        """
+        from .streaming import pipeline
+        if isinstance(sink, os.PathLike):
+            sink = os.fspath(sink)
+        cfg = dataclasses.replace(self.config, engine="streaming")
+        report = pipeline.compress(source, sink, rel_eb, abs_eb=abs_eb,
+                                   config=cfg, collect_stats=collect_stats,
+                                   bounds=bounds, resume=resume,
+                                   device=self.device)
+        arc = Archive.open(sink, device=self.device)
+        arc.report = report
+        return self._adopt(arc)
+
     def _adopt(self, arc: Archive) -> Archive:
         """Give ``arc`` this session's telemetry and faults where it has
         none of its own."""
@@ -169,15 +201,17 @@ class NeurLZ:
             arc.faults = self.engine.faults
         return arc
 
-    def decompress(self, archive) -> dict:
+    def decompress(self, archive, *, reassemble: bool = False) -> dict:
         """Decode every field of an :class:`Archive` or archive dict on
         this session's device, with its telemetry and faults, by this
-        session's engine (``batched`` decodes as ``serial`` does)."""
+        session's engine (``batched`` and ``streaming`` decode as
+        ``serial`` does); ``reassemble=True`` joins blocked fields."""
         if not (isinstance(archive, Archive) and archive.device == self.device):
             arc = archive.to_dict() if isinstance(archive, Archive) else archive
             archive = Archive(arc, device=self.device)
         engine = "batched" if self.engine.engine == "batched" else "serial"
-        return self._adopt(archive).decode_all(engine=engine)
+        return self._adopt(archive).decode_all(engine=engine,
+                                               reassemble=reassemble)
 
     def __repr__(self) -> str:
         return (f"NeurLZ(engine={self.engine.engine!r}, "

@@ -40,6 +40,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 from ..compressors import codec
 
@@ -722,10 +723,33 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _to_archive_dtype(a: np.ndarray, dtype: str) -> np.ndarray:
+    """``a`` in the archive's weight dtype.  ``bfloat16`` is held as its raw
+    16 bits, rounded to nearest even by torch, as ``ml_dtypes`` rounds: no
+    numpy ``bfloat16`` dtype is needed, and the bytes are the same."""
+    if dtype == "bfloat16":
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(torch.bfloat16).view(torch.int16).numpy()
+    return np.asarray(a, dtype=dtype)
+
+
+def _from_archive_dtype(raw: bytes, dtype: str, shape) -> np.ndarray:
+    """Inverse of :func:`_to_archive_dtype`, as float32 (``bfloat16``: its
+    16 bits are the high half of a float32's)."""
+    if dtype == "bfloat16":
+        bits = np.frombuffer(raw, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(raw, dtype=dtype).reshape(shape).astype(np.float32)
+
+
+def _itemsize(dtype: str) -> int:
+    return 2 if dtype == "bfloat16" else np.dtype(dtype).itemsize
+
+
 def pack_weights(params_tree, dtype: str = "float32") -> dict:
     """Flatten an enhancer parameter tree (``{layer: {"b", "w"}}``, ``w`` in
     HWIO) into one compressed blob."""
-    arrs = [np.asarray(_to_numpy(leaf), dtype=dtype)
+    arrs = [_to_archive_dtype(_to_numpy(leaf), dtype)
             for leaf in _flatten(params_tree)]
     buf = io.BytesIO()
     for a in arrs:
@@ -746,11 +770,11 @@ def unpack_weights(blob: dict, params_like) -> dict:
     """Inverse of :func:`pack_weights`: a tree shaped like ``params_like``
     holding float32 numpy arrays."""
     raw = codec.decompress(blob["payload"], blob.get("codec", "zstd"))
-    dt = np.dtype(blob["dtype"])
+    dtype = blob["dtype"]
+    size = _itemsize(dtype)
     out, off = [], 0
     for shape in blob["shapes"]:
-        n = int(np.prod(shape)) * dt.itemsize
-        out.append(np.frombuffer(raw[off:off + n], dtype=dt)
-                   .reshape(shape).astype(np.float32))
+        n = int(np.prod(shape)) * size
+        out.append(_from_archive_dtype(raw[off:off + n], dtype, shape))
         off += n
     return _unflatten(params_like, iter(out))

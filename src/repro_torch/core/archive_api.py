@@ -10,9 +10,13 @@ returns and :func:`repro_torch.core.archive.save` writes) or a **streaming**
   its index footer is read, no entry until one is asked for.
   ``repair=True`` rebuilds the index of a footerless or torn container by
   scanning its records (:attr:`salvaged`, :attr:`damage`).
-* ``decode(name)`` reads that field's entry and its cross-field aux closure
-  and decodes only those; ``decode_all()`` decodes every field, on a
-  container one field at a time with only the live aux set resident.
+* ``decode(name, roi=None)`` reads that field's entry and its cross-field
+  aux closure and decodes only those; ``roi`` (slices) cuts the result, and
+  on a field that a ``BlockedSource`` split into blocks
+  (:attr:`block_manifest`) reads and decodes only the blocks that cover
+  it.  ``decode_all()`` decodes every field, on a container one field at a
+  time with only the live aux set resident
+  (:func:`repro_torch.streaming.pipeline.iter_decompress`).
 * ``bitrate()``, ``save(path)``, ``verify()``, ``to_dict()``.
 
 Files written by either package open in the other.  The handle is also a
@@ -34,12 +38,33 @@ from .. import compressors
 from .. import device as device_lib
 from .. import faults as faults_lib
 from ..obs import telemetry as obs_lib
-from ..roadmap import unported
 from . import archive as arc_io
 from . import neurlz
 
 _TOP_KEYS = ("kind", "fields", "slice_axis", "compressor", "timing",
              "bitrate")
+
+
+def normalize_roi(roi, ndim: int) -> tuple:
+    """A region of interest as a full tuple of slices.
+
+    ``roi`` is a slice or a tuple of slices (a shorter tuple extends with
+    ``slice(None)`` on the trailing axes, as numpy basic indexing does).
+    Integers are refused: a ROI decode keeps the field's rank, so reads of
+    covering blocks compose with further slicing.
+    """
+    if isinstance(roi, slice):
+        roi = (roi,)
+    if not isinstance(roi, tuple):
+        raise TypeError(f"roi must be a slice or tuple of slices, "
+                        f"got {type(roi).__name__}")
+    if len(roi) > ndim:
+        raise ValueError(f"roi has {len(roi)} axes for a {ndim}-d field")
+    for s in roi:
+        if not isinstance(s, slice):
+            raise TypeError("roi entries must be slices (integers would "
+                            f"drop an axis), got {type(s).__name__}")
+    return roi + (slice(None),) * (ndim - len(roi))
 
 
 class Archive(Mapping):
@@ -55,6 +80,7 @@ class Archive(Mapping):
         self.device = device_lib.resolve(device)
         self.telemetry = obs_lib.NULL      # a Telemetry handle traces decodes
         self.faults = faults_lib.DEFAULT   # a FaultConfig retries entry reads
+        self.report: dict | None = None    # the compression report, if any
 
     # -- constructors -------------------------------------------------------
 
@@ -151,15 +177,12 @@ class Archive(Mapping):
 
     @property
     def block_manifest(self) -> dict:
-        """Reassembly manifest of fields that a streaming source split into
-        blocks: not ported with that source."""
-        raise unported("block_manifest", "streaming")
-
-    def _check_unblocked(self) -> None:
-        """Refuse a container whose fields were split into blocks: joining
-        them back comes with the streaming source."""
-        if self.streaming and self._reader.meta.get("blocks"):
-            raise unported("a container of blocked fields", "streaming")
+        """Reassembly manifest of the fields that a ``BlockedSource`` split
+        (empty when none was): original name -> ``{"axis", "blocks":
+        [(entry, lo, hi)]}``."""
+        if self.streaming:
+            return dict(self._reader.meta.get("blocks") or {})
+        return {}
 
     def entry(self, name: str) -> dict:
         """One field's raw entry (on a container: read once, then cached)."""
@@ -189,11 +212,54 @@ class Archive(Mapping):
     def decode(self, name: str, roi=None) -> np.ndarray:
         """Decode one field: its entry plus the conventional payloads of its
         aux fields, read transiently from a container (nothing else is
-        read)."""
-        if roi is not None:
-            raise unported("roi=", "streaming")
-        self._check_unblocked()
-        return self._decode(name, {})[0]
+        read).  ``name`` may be a :attr:`block_manifest` original: its
+        blocks are decoded and joined.
+
+        ``roi`` (a slice or tuple of slices) restricts the result.  On a
+        blocked original only the blocks that cover the slab along the
+        split axis are read and decoded; a plain entry is self-contained,
+        so its ROI is cut from a full decode."""
+        man = self.block_manifest.get(name)
+        if man is not None:
+            return self._decode_blocked(man, roi)
+        out = self._decode(name, {})[0]
+        if roi is None:
+            return out
+        return out[normalize_roi(roi, out.ndim)]
+
+    def _decode_blocked(self, man: dict, roi) -> np.ndarray:
+        """Decode a ``BlockedSource`` original, reading only the blocks
+        that cover ``roi``'s slab along the split axis."""
+        axis, blocks = man["axis"], man["blocks"]
+        if roi is None:
+            parts = [self.decode(bn) for bn, _, _ in blocks]
+            return np.concatenate(parts, axis=axis)
+        extent = blocks[-1][2]                 # blocks partition [0, extent)
+        bshape = tuple(self._reader.meta["shapes"][blocks[0][0]])
+        roi = normalize_roi(roi, len(bshape))
+        idx = np.arange(*roi[axis].indices(extent))
+        if idx.size == 0:
+            e = self._entry_transient(blocks[0][0])
+            dtype = np.dtype(e["conv"].get("dtype", "float32"))
+            shape = tuple(
+                len(range(*s.indices(extent if i == axis else bshape[i])))
+                for i, s in enumerate(roi))
+            return np.empty(shape, dtype=dtype)
+        lo_need, hi_need = int(idx.min()), int(idx.max()) + 1
+        # Other-axis slices apply inside each block; the split axis is
+        # gathered afterwards, so any step (negative ones too) works.
+        sub = tuple(s if i != axis else slice(None)
+                    for i, s in enumerate(roi))
+        parts, base = [], None
+        for bn, lo, hi in blocks:
+            if hi <= lo_need or lo >= hi_need:
+                continue                       # outside the slab: not read
+            if base is None:
+                base = lo
+            parts.append(self.decode(bn, roi=sub))
+        cat = parts[0] if len(parts) == 1 else np.concatenate(parts,
+                                                              axis=axis)
+        return np.take(cat, idx - base, axis=axis)
 
     def _decode(self, name: str, recs: dict) -> tuple[np.ndarray, list]:
         """Decode ``name``; the conventional reconstructions of it and of its
@@ -211,33 +277,23 @@ class Archive(Mapping):
                                             self["slice_axis"], self.device)
         return out, e["aux"]
 
-    def decode_all(self, *, engine: str = "serial") -> dict[str, np.ndarray]:
+    def decode_all(self, *, engine: str = "serial",
+                   reassemble: bool = False) -> dict[str, np.ndarray]:
         """Decode every field.  A container decodes one field at a time
-        through transient reads, keeping only the reconstructions a later
-        field still needs as aux (the footer's ``aux`` map counts them).
+        (:func:`repro_torch.streaming.pipeline.iter_decompress`) through
+        transient reads, keeping only the reconstructions a later field
+        still needs as aux (the footer's ``aux`` map counts them).
         ``engine="batched"`` decodes the same way: the batched engine's
         decode is the serial one
-        (:func:`repro_torch.core.batched_engine.decompress`)."""
+        (:func:`repro_torch.core.batched_engine.decompress`).
+        ``reassemble=True`` joins ``BlockedSource`` blocks back into their
+        original fields."""
         if engine not in ("serial", "batched"):
             raise ValueError(f"unknown decode engine {engine!r}")
         if not self.streaming:
             return neurlz.decompress(self._arc, self.device)
-        self._check_unblocked()
-        names = self.field_names
-        aux_map = self._reader.meta.get("aux", {})
-        refs = {n: 1 for n in names}
-        for n in names:
-            for a in aux_map.get(n, ()):
-                refs[a] = refs.get(a, 0) + 1
-        recs: dict[str, np.ndarray] = {}
-        out = {}
-        for name in names:
-            out[name], aux = self._decode(name, recs)
-            for m in (name, *aux):
-                refs[m] = refs.get(m, 1) - 1
-                if refs[m] <= 0:
-                    recs.pop(m, None)
-        return out
+        from ..streaming import pipeline
+        return dict(pipeline.iter_decompress(self, reassemble=reassemble))
 
     # -- accounting / persistence ------------------------------------------
 

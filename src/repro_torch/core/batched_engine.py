@@ -215,9 +215,8 @@ def _prepare_group(group: FieldGroup, fields, recs, ebs, config, tcfg,
     inputs, targets, stats, params = [], [], [], []
     for name in group.names:
         aux = [recs[a] for a in neurlz._aux_names(config, name, fields)]
-        inp, tgt, st = online_trainer.make_dataset(
-            recs[name], np.asarray(fields[name]), ebs[name], aux=aux,
-            slice_axis=config.slice_axis)
+        inp, tgt, st = neurlz.build_dataset(
+            np.asarray(fields[name]), recs[name], ebs[name], aux, config)
         inputs.append(inp)
         targets.append(tgt)
         stats.append(st)
@@ -361,7 +360,8 @@ def _finalize_group(state: _GroupState, fields, recs, ebs, conv_arcs,
                     config, conv_arcs[name], state.params[f], state.stats[f],
                     aux_names, ebs[name], state.net_cfg, hist, collect_stats)
                 _, mask = neurlz.enhance_and_mask(x, recs[name], resid,
-                                                  ebs[name], config)
+                                                  ebs[name], config,
+                                                  state.stats[f])
                 if mask is not None:
                     entry["outliers"] = outlier_codec.encode_outliers(
                         mask.cpu().numpy())

@@ -87,9 +87,13 @@ class ConvStage:
                 if self.bounds is not None else None)
         return plan_groups(metas, keys=keys)
 
-    def run(self, fields: Mapping[str, np.ndarray]
-            ) -> dict[str, tuple[dict, np.ndarray]]:
-        """Compress ``fields``; returns ``{name: (archive, reconstruction)}``."""
+    def run(self, fields: Mapping[str, np.ndarray], *,
+            batch: bool | None = None) -> dict[str, tuple[dict, np.ndarray]]:
+        """Compress ``fields``; returns ``{name: (archive, reconstruction)}``.
+        ``batch`` overrides the stage's batching for this call (the
+        streaming scheduler compresses field by field when a group's
+        batched working copies would not fit its budget)."""
+        batch = self.batch if batch is None else batch
         t0 = time.perf_counter()
         out: dict[str, tuple[dict, np.ndarray]] = {}
         arrs = {n: np.asarray(x) for n, x in fields.items()}
@@ -102,7 +106,7 @@ class ConvStage:
                 tel.counter("conv.groups").add()
                 tel.gauge("conv.group_size").set(len(group))
                 rel, ab = self.bound_for(group[0])   # one spec per group
-                if (self.batch and len(group) > 1
+                if (batch and len(group) > 1
                         and self.entry.batch_supports(metas[group[0]][1])):
                     results = self.entry.compress_batched(
                         [arrs[n] for n in group], rel, abs_eb=ab,

@@ -46,7 +46,6 @@ from .. import faults as faults_lib
 from ..compressors import outliers as outlier_codec
 from ..compressors import registry
 from ..obs import telemetry as obs_lib
-from ..roadmap import unported
 from . import archive as arc_io
 from . import bounds as bounds_lib
 from . import conv_stage as conv_stage_lib
@@ -64,10 +63,11 @@ class NeurLZConfig:
     slice_axis: int = 0
     skip: bool = True                   # skipping vs plain DNN (ablation)
     learn_residual: bool = True         # residual vs direct learning
+    #   (ablation, Fig. 4: False trains on the normalized original)
     cross_field: Mapping[str, tuple] = dataclasses.field(default_factory=dict)
     weight_dtype: str = "float32"       # archive precision of the weights
     widths: tuple = (4, 4, 6, 6, 8)
-    engine: str = "serial"              # serial | batched
+    engine: str = "serial"              # serial | batched | streaming
     conv_batch: bool = True             # batched conventional stage
     # The batched engine (repro_torch.core.batched_engine):
     field_batching: str = "auto"        # auto | unroll | vmap (stacked)
@@ -75,27 +75,25 @@ class NeurLZConfig:
     prefetch: bool = True               # conventional stage lazily a group
     field_shard: bool = True            # spread groups over devices: the
     #   session has one device, so nothing to spread (ROADMAP item 6)
+    max_resident_bytes: int = 0         # streaming residency budget (0: off)
     telemetry: object | None = None     # repro_torch.obs.Telemetry (None:
     #   disabled, every instrumentation point a shared no-op singleton)
     faults: object | None = None        # repro_torch.faults.FaultConfig
     #   (None: no injection, no retries, conv-only degradation on)
 
     def check(self) -> None:
-        """Raise for settings the port does not run yet."""
+        """Raise for a setting out of range."""
         if self.mode not in regulation.MODES:
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.engine == "streaming":
-            raise unported("engine='streaming'", "streaming")
-        if self.engine not in ("serial", "batched"):
-            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.engine not in ("serial", "batched", "streaming"):
+            raise ValueError(f"unknown engine {self.engine!r} "
+                             "(want 'serial', 'batched' or 'streaming')")
         if self.field_batching not in ("auto", "unroll", "vmap"):
             raise ValueError(f"unknown field_batching {self.field_batching!r} "
                              "(want 'auto', 'unroll' or 'vmap')")
         if self.group_size < 0:
             raise ValueError(f"group_size must be >= 0, got {self.group_size}")
         registry.get(self.compressor)   # an unknown name raises
-        if not self.learn_residual:
-            raise unported("learn_residual=False", "the rest")
 
     def net_config(self, c_in: int) -> skipping_dnn.SkippingDNNConfig:
         return skipping_dnn.SkippingDNNConfig(
@@ -127,6 +125,21 @@ def _sync(device: torch.device) -> None:
     """Wait for the device, so a stage's wall time holds its own work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def build_dataset(x: np.ndarray, rec: np.ndarray, eb: float,
+                  aux: list[np.ndarray], config: NeurLZConfig):
+    """One field's training tensors ``(inputs, targets, stats)``.  With
+    ``learn_residual=False`` (the paper's direct-learning ablation, Fig. 4)
+    the target is the original normalized by the decompressed field's
+    stats, not the residual over ``eb``."""
+    inputs, targets, stats = online_trainer.make_dataset(
+        rec, x, eb, aux=aux, slice_axis=config.slice_axis)
+    if not config.learn_residual:
+        mu, sd = stats[0]
+        o = np.moveaxis(np.asarray(x, np.float64), config.slice_axis, 0)
+        targets = (((o - mu) / sd).astype(np.float32))[..., None]
+    return inputs, targets, stats
 
 
 def pack_entry(config: NeurLZConfig, conv_arc: dict, params, stats,
@@ -163,19 +176,40 @@ def archived_model(model: skipping_dnn.SkippingDNN, config: NeurLZConfig,
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:      # a read-only memmap of an .npy source
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def direct_enhance(resid_norm: torch.Tensor, stats, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """The direct-learning ablation's field: the network's output
+    de-normalized by the decompressed field's stats, ``out·sd + mu`` in
+    float64 (two roundings, no FMA), then cast to ``dtype``."""
+    mu, sd = stats[0]
+    return (resid_norm.to(torch.float64) * sd + mu).to(dtype)
 
 
 def enhance_and_mask(x: np.ndarray, rec: np.ndarray, resid_norm: torch.Tensor,
-                     eb: float, config: NeurLZConfig):
+                     eb: float, config: NeurLZConfig, stats=None):
     """Encoder-side enhancement on ``resid_norm``'s device:
     ``(field_rec, mask)`` tensors, ``mask`` None unless strict.
-    ``resid_norm`` is slice-axis-first, as :func:`predict_residual` gives it."""
+    ``resid_norm`` is slice-axis-first, as :func:`predict_residual` gives it.
+    The residual path is the ``fused_enhance`` kernel; the direct path
+    (``learn_residual=False``, which needs the field's ``stats``) is plain
+    tensor ops, as the JAX package runs it outside Pallas."""
     device = resid_norm.device
     resid = torch.movedim(resid_norm, 0, config.slice_axis).contiguous()
-    return regulation.fused_enhance(_to_device(rec, device), resid,
-                                    _to_device(x, device), eb,
-                                    mode=config.mode)
+    dec, orig = _to_device(rec, device), _to_device(x, device)
+    if config.learn_residual:
+        return regulation.fused_enhance(dec, resid, orig, eb,
+                                        mode=config.mode)
+    out = direct_enhance(resid, stats, orig.dtype)
+    if config.mode != "strict":
+        return out, None
+    mask = regulation.outlier_mask(orig, out, eb)
+    return regulation.apply_strict(out, dec, mask), mask
 
 
 def pack_degraded_entry(config: NeurLZConfig, conv_arc: dict, eb: float,
@@ -253,11 +287,12 @@ def assemble_streaming_archive(reader: arc_io.ArchiveReader) -> dict:
     return arc
 
 
-def _sample_psnr_hook(tel, x, rec, inputs, eb, config, device):
+def _sample_psnr_hook(tel, x, rec, inputs, eb, stats, config, device):
     """Per-epoch measured PSNR on a few sampled slices (telemetry
     ``sample_psnr``): after every epoch, predict their residual and score
     the enhancement before the strict patch — ``fused_enhance`` with
-    ``orig := rec``, equal to ``enhance`` — against the original.  It reads the model under
+    ``orig := rec``, equal to ``enhance``, or the direct path's
+    :func:`direct_enhance` — against the original.  It reads the model under
     ``no_grad`` and draws no random numbers, so training is unchanged.
     Returns ``(on_epoch, samples)``, ``(None, None)`` when disabled."""
     if not (tel.enabled and tel.config.sample_psnr):
@@ -273,8 +308,11 @@ def _sample_psnr_hook(tel, x, rec, inputs, eb, config, device):
 
     def on_epoch(epoch, model, loss):
         resid = online_trainer.predict_residual(model, inp_s).contiguous()
-        enh, _ = regulation.fused_enhance(rec_s, resid, rec_s, eb,
-                                          mode="relaxed")
+        if config.learn_residual:
+            enh, _ = regulation.fused_enhance(rec_s, resid, rec_s, eb,
+                                              mode="relaxed")
+        else:
+            enh = direct_enhance(resid, stats, rec_s.dtype)
         samples.append(metrics.psnr(x_s, enh.cpu().numpy()))
 
     return on_epoch, samples
@@ -288,14 +326,13 @@ def _enhance_field(x, rec, aux, aux_names, eb, conv_arc, fcfg, net_cfg, init,
     local to this frame, so a failure releases them with it."""
     tcfg = fcfg.train_config()
     ts = time.perf_counter()
-    inputs, targets, stats = online_trainer.make_dataset(
-        rec, x, eb, aux=aux, slice_axis=fcfg.slice_axis)
+    inputs, targets, stats = build_dataset(x, rec, eb, aux, fcfg)
     params = skipping_dnn.params_from_jax(init) if init is not None else None
     model = skipping_dnn.SkippingDNN(
         net_cfg, params, generator=torch.Generator().manual_seed(tcfg.seed),
         device=device)
-    on_epoch, samples = _sample_psnr_hook(tel, x, rec, inputs, eb, fcfg,
-                                          device)
+    on_epoch, samples = _sample_psnr_hook(tel, x, rec, inputs, eb, stats,
+                                          fcfg, device)
     history = online_trainer.train(model, inputs, targets, tcfg,
                                    schedule=schedule, on_epoch=on_epoch)
     _sync(device)
@@ -315,7 +352,7 @@ def _enhance_field(x, rec, aux, aux_names, eb, conv_arc, fcfg, net_cfg, init,
     t["pack_s"] += time.perf_counter() - ts
 
     ts = time.perf_counter()
-    _, mask = enhance_and_mask(x, rec, resid, eb, fcfg)
+    _, mask = enhance_and_mask(x, rec, resid, eb, fcfg, stats)
     if mask is not None:
         mask = mask.cpu().numpy()   # waits for the enhance kernel
     elif tel.enabled:
@@ -335,8 +372,9 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
                   init_params: Mapping | None = None,
                   batch_schedules: Mapping | None = None,
                   bounds=None) -> dict:
-    """Compress one snapshot with the configured engine (``serial``, or
-    ``batched``: :func:`repro_torch.core.batched_engine.compress`) on
+    """Compress one snapshot with the configured engine (``serial``;
+    ``batched``: :func:`repro_torch.core.batched_engine.compress`;
+    ``streaming``: :func:`repro_torch.streaming.pipeline.compress_dict`) on
     ``device`` (``cuda`` unless given); returns the archive dict.  ``bounds`` optionally gives
     per-field :class:`~repro_torch.core.bounds.ErrorBound` specs (the forms
     of :func:`~repro_torch.core.bounds.resolve_bounds`).  ``init_params``
@@ -344,6 +382,15 @@ def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
     -> ``[epochs, steps, batch]`` indices) fix the enhancer's start and
     batch order, e.g. to the JAX package's."""
     config.check()
+    if config.engine == "streaming":
+        if init_params or batch_schedules:
+            raise ValueError("the streaming engine starts every enhancer "
+                             "from the seed: init_params and "
+                             "batch_schedules are the in-memory engines'")
+        from ..streaming import pipeline
+        return pipeline.compress_dict(
+            fields, rel_eb, abs_eb=abs_eb, config=config,
+            collect_stats=collect_stats, bounds=bounds, device=device)
     if config.engine == "batched":
         from . import batched_engine
         return batched_engine.compress(
@@ -448,14 +495,16 @@ def decode_entry_net(entry: dict, device) -> skipping_dnn.SkippingDNN:
 def apply_decoded_entry(entry: dict, rec: np.ndarray, resid_norm: torch.Tensor,
                         slice_axis: int) -> torch.Tensor:
     """Decode-side enhancement + outlier patch, on ``resid_norm``'s device:
-    the encoder's ``fused_enhance`` arithmetic with ``orig := rec``."""
-    if not entry["learn_residual"]:
-        raise unported("learn_residual=False", "the rest")
+    the encoder's arithmetic (``fused_enhance`` with ``orig := rec``, or
+    the direct path's :func:`direct_enhance`)."""
     device = resid_norm.device
     resid = torch.movedim(resid_norm, 0, slice_axis).contiguous()
     dec = _to_device(rec, device)
-    out, _ = regulation.fused_enhance(dec, resid, dec, entry["abs_eb"],
-                                      mode="relaxed")
+    if entry["learn_residual"]:
+        out, _ = regulation.fused_enhance(dec, resid, dec, entry["abs_eb"],
+                                          mode="relaxed")
+    else:
+        out = direct_enhance(resid, entry["stats"], dec.dtype)
     if entry["mode"] == "strict" and "outliers" in entry:
         mask = _to_device(outlier_codec.decode_outliers(entry["outliers"]),
                           device)

@@ -18,10 +18,12 @@ Three cooperating pieces, carried by ``NeurLZConfig.faults`` /
   injection or by a non-finite loss packs to the same bytes as the JAX
   package's.
 
-``FaultConfig.straggler_deadline_s`` is carried for the streaming scheduler,
-which is not ported yet; the serial engine ignores it, as the JAX package's
-does.  Imports nothing of the engine and nothing but the standard library
-and ``torch``.
+The straggler watchdog is :class:`StepWatchdog`
+(``repro_torch.checkpoint.fault_tolerance``): give
+``FaultConfig.straggler_deadline_s`` a value and the streaming scheduler
+counts each field group that runs past it as ``faults.stragglers``; the
+serial and batched engines ignore it, as the JAX package's do.  Imports
+nothing of the engine and nothing but the standard library and ``torch``.
 """
 from __future__ import annotations
 
@@ -29,13 +31,14 @@ import dataclasses
 
 import torch
 
+from ..checkpoint.fault_tolerance import StepWatchdog
 from .injector import NULL_INJECTOR, FaultInjector, InjectedFault
 from .retry import RetryPolicy, retry_with_backoff
 
 __all__ = [
     "FaultConfig", "FaultInjector", "InjectedFault", "RetryPolicy",
-    "retry_with_backoff", "of", "DEFAULT", "is_degradable", "degrade_reason",
-    "NULL_INJECTOR",
+    "StepWatchdog", "retry_with_backoff", "of", "DEFAULT", "is_degradable",
+    "degrade_reason", "NULL_INJECTOR",
 ]
 
 # Failures eligible for conv-only degradation.  Deliberately narrow: a
@@ -69,8 +72,8 @@ class FaultConfig:
 
     ``injector=None`` disables injection (production), ``retry=None``
     disables retries (fail fast), ``degrade`` controls conv-only
-    degradation, ``straggler_deadline_s`` is kept for the streaming
-    scheduler (not ported; the serial engine ignores it).
+    degradation, ``straggler_deadline_s`` is the streaming scheduler's
+    per-group deadline (the serial and batched engines ignore it).
     """
 
     injector: FaultInjector | None = None

@@ -255,10 +255,12 @@ def test_archive_opens_a_container_lazily(tmp_path, snapshot):
         assert opened.save(copy) == os.path.getsize(path)
         assert open(copy, "rb").read() == open(path, "rb").read()
     assert tel.span_summary()["decode"]["count"] == 1 + len(FIELDS)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        opened.decode("w", roi=(slice(0, 2),))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        opened.block_manifest
+    # A region of a plain entry is cut from its full decode; no field of
+    # this container was split into blocks.
+    with repro_torch.open(path, device="cpu") as opened:
+        assert np.array_equal(opened.decode("w", roi=(slice(0, 2),)),
+                              want["w"][:2])
+        assert opened.block_manifest == {}
 
 
 def test_archive_retries_a_transient_entry_read(tmp_path, snapshot):

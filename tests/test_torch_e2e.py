@@ -12,8 +12,12 @@ once for both.
 * archive files cross-open: the JAX package reads the port's and decodes its
   conventional payloads to the same bytes, and the reverse;
 * the reference's entries streamed into an ``NLZSTRM2`` container by the
-  reference's appender open lazily in the port and decode as above.
+  reference's appender open lazily in the port and decode as above;
+* the paper's direct-learning ablation (``learn_residual=False``) against
+  the reference's serial engine with the same tolerances.
 """
+import io
+
 import jax
 import numpy as np
 import pytest
@@ -30,6 +34,7 @@ from repro.data import fields as ref_fields
 from repro_torch import compressors
 from repro_torch.compressors import szlike as port_sz
 from repro_torch.compressors import zfplike as port_zfp
+from repro_torch import streaming
 from repro_torch.core import archive as arc_io
 from repro_torch.core import conv_stage, metrics, neurlz, online_trainer
 from repro_torch.core import skipping_dnn as port_dnn
@@ -123,6 +128,44 @@ def test_main_path_matches_reference(tmp_path, ref_main):
         assert _max_err(port_on_ref[name], ref_dec[name]) <= 1e-3 * eb
 
 
+def test_direct_learning_matches_reference():
+    """``learn_residual=False``: the network learns the original normalized
+    by the decompressed field's stats (paper Fig. 4, "non-residual").  The
+    reference's trainer compile is the main path's (same shapes)."""
+    ref_arc = repro.NeurLZ(engine="serial", lowering="eager", conv_batch=False,
+                           epochs=EPOCHS, seed=SEED,
+                           learn_residual=False).compress(FIELDS, rel_eb=REL_EB)
+    ref_dec = ref_arc.decode_all()
+    init, sched = _carried_across(FIELDS)
+    sess = repro_torch.NeurLZ(epochs=EPOCHS, seed=SEED, learn_residual=False,
+                              device="cpu")
+    arc = sess.compress(FIELDS, rel_eb=REL_EB, init_params=init,
+                        batch_schedules=sched)
+    dec = arc.decode_all()
+    for name, x in FIELDS.items():
+        e, re_ = arc["fields"][name], ref_arc["fields"][name]
+        assert e["learn_residual"] is False and re_["learn_residual"] is False
+        for key in ("codes", "unpred", "literals"):
+            assert e["conv"][key]["payload"] == re_["conv"][key]["payload"]
+        assert e["abs_eb"] == re_["abs_eb"] and e["stats"] == re_["stats"]
+        eb = e["abs_eb"]
+        assert _max_err(dec[name], x) <= eb            # strict 1x
+        # The main path's tolerances: losses to 1e-4, quality to 0.05 dB.
+        np.testing.assert_allclose(e["loss_history"], re_["loss_history"],
+                                   rtol=1e-4)
+        assert abs(metrics.psnr(x, dec[name])
+                   - metrics.psnr(x, ref_dec[name])) <= 0.05
+        # Decode reproduces the encoder's final field bit for bit.
+        rec = port_sz.decompress(e["conv"], device="cpu")
+        inputs, _, stats = neurlz.build_dataset(x, rec, eb, [], sess.config)
+        resid = online_trainer.predict_residual(
+            neurlz.decode_entry_net(e, "cpu"), inputs)
+        final, mask = neurlz.enhance_and_mask(x, rec, resid, eb, sess.config,
+                                              stats)
+        assert final.numpy().tobytes() == dec[name].tobytes()
+        assert int(mask.sum()) == e["outliers"]["count"]
+
+
 def test_reference_container_opens_lazily_in_the_port(tmp_path, ref_main):
     ref_arc, ref_dec = ref_main
     path = tmp_path / "ref.nlzs"
@@ -194,14 +237,24 @@ def test_other_modes_decode_within_their_bound(mode, factor):
     assert np.array_equal(arc.decode("cloud"), dec["cloud"])
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"engine": "streaming"}, "streaming"),
-    ({"max_resident_bytes": 1}, "streaming"),
-    ({"learn_residual": False}, "the rest"),
+@pytest.mark.parametrize("kwargs", [
+    {"engine": "streaming"},
+    {"engine": "streaming", "max_resident_bytes": 10 ** 6},
+    {"learn_residual": False},
 ])
-def test_unported_settings_name_their_roadmap_item(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        repro_torch.NeurLZ(device="cpu", **kwargs)
+def test_unported_settings_name_their_roadmap_item(kwargs):
+    """The settings that once raised, naming the item that would port them,
+    now run: each compresses and decodes within its bound."""
+    sub = {k: FIELDS[k] for k in ("cloud", "w")}
+    arc = repro_torch.NeurLZ(epochs=1, device="cpu", **kwargs).compress(
+        sub, rel_eb=REL_EB)
+    dec = arc.decode_all()
+    for name, x in sub.items():
+        e = arc["fields"][name]
+        assert e["learn_residual"] is kwargs.get("learn_residual", True)
+        assert _max_err(dec[name], x) <= e["abs_eb"]
+    if "max_resident_bytes" in kwargs:
+        assert arc["timing"]["peak_resident_bytes"] <= 10 ** 6
 
 
 @pytest.mark.parametrize("kwargs", [{"engine": "batched"},
@@ -274,6 +327,14 @@ DEFAULT_CUDA_CALLS = {
     "Archive.open(container)":
         lambda x, arc, files: repro_torch.Archive.open(files["container"]),
     "repro_torch.open": lambda x, arc, files: repro_torch.open(files["whole"]),
+    "streaming.compress": lambda x, arc, files: streaming.compress(
+        {"w": x}, io.BytesIO(), REL_EB),
+    "streaming.iter_decompress":
+        lambda x, arc, files: next(streaming.iter_decompress(files["container"])),
+    "NeurLZ.compress_to": lambda x, arc, files: repro_torch.NeurLZ(
+        epochs=1).compress_to({"w": x}, io.BytesIO(), rel_eb=REL_EB),
+    "PipelineScheduler.run": lambda x, arc, files: streaming.PipelineScheduler(
+        neurlz.NeurLZConfig(epochs=1)).run({"w": x}, io.BytesIO(), REL_EB),
 }
 
 
