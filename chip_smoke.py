@@ -73,8 +73,19 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    slice, the ledger's peak stay within the budget and the ledger evict;
    it prints the compress and decode times, the writer thread's busy and
    put-wait seconds and the ledger's peak;
-9. a ``zfplike`` conventional round trip on one full field;
-10. the launch count of every kernel over each path, counted from 0 just
+9. the serve path: one ``ArchiveServer`` on the card over the streaming
+   path's container and the Lorenzo path's archive under a 250 MB ledger
+   (two decoded fields); a cold burst of eight requests from eight client
+   threads must be two stacked conventional decodes (an interp walk and one
+   ``lorenzo3d_inv`` launch) of six archives, each result its path's decode
+   bit for bit; a hot hit that reads no entry, a ROI, an injected
+   ``serve.request`` fault that fails one request only, the ledger within
+   its ceiling after each phase and evicting; then ``transcode`` of ``w``
+   to ``rel=1e-2`` at SERVE_EPOCHS epochs under its own ledger, its entry
+   equal by SHA-256 to ``NeurLZ.compress`` of the served ``w``, the new
+   bound held;
+10. a ``zfplike`` conventional round trip on one full field;
+11. the launch count of every kernel over each path, counted from 0 just
     before the path: each kernel of a path must have launched in it; and
     each path's ``torch.cuda.max_memory_allocated``, reset before it.
 
@@ -1131,10 +1142,11 @@ def main_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
     return launches, kept
 
 
-def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
+def lorenzo_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
     """``NeurLZ(compressor="szlike-lorenzo")`` on the snapshot: one batched
     conventional group of three fields, the strict bound and decode equal to
-    the encoder's final field on every field."""
+    the encoder's final field on every field.  Returns ``(launches, kept)``,
+    ``kept`` its archive dict and its decode, which the serve path serves."""
     import torch
     import repro_torch
     from repro_torch import kernels
@@ -1201,7 +1213,7 @@ def lorenzo_path(dev, fields, epochs: int, report: dict) -> dict:
     print("lorenzo_path", json.dumps({k: v for k, v in out.items()
                                       if k != "per_field"}))
     report["lorenzo_path"] = out
-    return launches
+    return launches, {"archive": opened.to_dict(), "decoded": decoded}
 
 
 def durable_path(dev, fields, epochs: int, main: dict, report: dict
@@ -1513,14 +1525,17 @@ STREAM_BUDGET = 900_000_000   # bytes: 2.25 of one field's working set
 STREAM_ROI = (slice(10, 20), slice(None), slice(100, 300))
 
 
-def streaming_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
+def streaming_path(dev, fields, epochs: int, main: dict, report: dict
+                   ) -> tuple[dict, Path]:
     """``NeurLZ(group_size=1, max_resident_bytes=STREAM_BUDGET).compress_to``
     of the snapshot written as ``.npy`` files (an ``NpyDirSource``) into a
     container, decoded by ``iter_decompress`` and one ROI.  One field's
     working set on the residency ledger is x 100 MB + rec 100 MB + dataset
     200 MB: the three fields' 1.2 GB exceed the budget, so the pipeline
     must evict.  ``main`` is what :func:`main_path` kept: every entry must
-    equal its entry by SHA-256, every decode its decode."""
+    equal its entry by SHA-256, every decode its decode.  Returns
+    ``(launches, path)``, ``path`` the container, which the serve path
+    serves."""
     import hashlib
     import numpy as np
     import torch
@@ -1606,6 +1621,185 @@ def streaming_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     print("streaming_path", json.dumps({k: v for k, v in out.items()
                                         if k != "per_field"}))
     report["streaming_path"] = out
+    return launches, path
+
+
+SERVE_MAX_BYTES = 250_000_000   # holds two of the 100 MB decoded fields
+SERVE_EPOCHS = 10               # the transcode's training, as the durable path
+
+
+def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
+               container: Path, report: dict) -> dict:
+    """The serving tier: one ``ArchiveServer`` on the card over the
+    streaming path's container (``interp``) and the Lorenzo path's archive
+    dict (``lorenzo``), under a 250 MB ledger.  A cold burst of eight
+    requests from eight client threads (all six fields, ``w`` of each twice)
+    must be two stacked conventional decodes (one interp walk, one
+    ``lorenzo3d_inv`` launch) of six archives, every result equal to its
+    path's decode bit for bit; then a hot hit that reads no entry, a ROI,
+    an injected fault that fails one request only, the ledger within its
+    ceiling after every phase and evicting.  Then ``transcode`` of the main
+    path's ``w`` entry to ``rel=1e-2`` under its own ledger: its entry must
+    equal, by SHA-256, ``NeurLZ.compress`` of the served ``w`` at the same
+    bound and epochs, and hold the new bound.  Counts are read after the
+    transcode, before that reference compress."""
+    import hashlib
+    import threading
+    import torch
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import archive as arc_io
+    from repro_torch.core import neurlz, regulation
+    from repro_torch.streaming import ResidencyLedger
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"serve path: {what}")
+
+    want = {("interp", n): main["decoded"][n] for n in main["decoded"]}
+    want.update({("lorenzo", n): a for n, a in lorenzo["decoded"].items()})
+    tel = repro_torch.Telemetry(
+        repro_torch.TelemetryConfig(learning_traces=False))
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    srv = repro_torch.ArchiveServer(
+        {"interp": str(container), "lorenzo": lorenzo["archive"]},
+        max_bytes=SERVE_MAX_BYTES, auto_start=False, telemetry=tel,
+        device=dev)
+    ledger = srv.ledger
+
+    def ledger_ok(phase: str) -> None:
+        check(ledger.current <= SERVE_MAX_BYTES,
+              f"{phase}: ledger {ledger.current} > {SERVE_MAX_BYTES}")
+
+    # Cold burst: eight clients queue, then the dispatcher starts.
+    burst = list(want) + [("interp", "w"), ("lorenzo", "w")]
+    futs: list = [None] * len(burst)
+    barrier = threading.Barrier(len(burst))
+
+    def client(i, aid, name):
+        barrier.wait()
+        futs[i] = srv.submit(name, archive_id=aid)
+    clients = [threading.Thread(target=client, args=(i, *k))
+               for i, k in enumerate(burst)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join()
+    t0 = time.perf_counter()
+    srv.start()
+    got = [f.result(600) for f in futs]
+    t_cold = time.perf_counter() - t0
+    for k, g in zip(burst, got):
+        check(g.tobytes() == want[k].tobytes(),
+              f"{k}: served field differs from its path's decode")
+    stats = srv.decode_stats.as_dict()
+    check((stats["batched"], stats["single"], stats["max_width"],
+           stats["archives"]) == (2, 0, 3, 6),
+          f"the cold burst was not two stacked decodes of 6: {stats}")
+    ledger_ok("cold burst")
+
+    # Hot: a field the cache holds reads no entry.
+    hot = next((k[1] for k in srv.cache.keys
+                if k[0] == "interp" and k[2] is None), None)
+    if hot is None:          # the burst's last puts were Lorenzo fields
+        hot = "w"
+        srv.decode(hot, archive_id="interp")
+    hits, reads = (tel.counters.get(k, 0)
+                   for k in ("serve.cache.hits", "archive.entry_reads"))
+    t0 = time.perf_counter()
+    out = srv.decode(hot, archive_id="interp")
+    t_hot = time.perf_counter() - t0
+    check(out.tobytes() == want[("interp", hot)].tobytes(), "hot hit differs")
+    check(tel.counters.get("serve.cache.hits", 0) == hits + 1,
+          "the hot request was no cache hit")
+    check(tel.counters.get("archive.entry_reads", 0) == reads,
+          "the hot request read an entry")
+    ledger_ok("hot")
+
+    t0 = time.perf_counter()
+    roi = srv.decode("w", archive_id="interp", roi=STREAM_ROI)
+    torch.cuda.synchronize()
+    t_roi = time.perf_counter() - t0
+    check(roi.tobytes() == main["decoded"]["w"][STREAM_ROI].tobytes(),
+          "the ROI differs from the main path's slice")
+    ledger_ok("roi")
+
+    # Fault: an uncached field's request fails, the next one is served.
+    cold = next(n for n in main["decoded"]
+                if ("interp", n, None) not in srv.cache)
+    srv.faults = repro_torch.FaultConfig(
+        injector=repro_torch.FaultInjector({"serve.request": 0}))
+    doomed = srv.submit(cold, archive_id="interp")
+    try:
+        doomed.result(600)
+        check(False, "the injected fault failed no request")
+    except repro_torch.InjectedFault:
+        pass
+    t0 = time.perf_counter()
+    out = srv.decode(cold, archive_id="interp")
+    t_after_fault = time.perf_counter() - t0
+    check(out.tobytes() == want[("interp", cold)].tobytes(),
+          "the request after the fault differs")
+    ledger_ok("fault")
+    counters = tel.counters_prefixed("serve.")
+    check(counters.get("serve.cache.evictions", 0) > 0,
+          "the cache evicted nothing")
+    check(counters.get("serve.request_errors", 0) == 1,
+          f"request errors {counters.get('serve.request_errors')} != 1")
+    srv.close(close_archives=True)
+    check(ledger.current == 0, "the closed server left bytes charged")
+
+    # Transcode w from an archive dict of its entry.
+    w_entry = arc_io.loads(main["entries"]["w"])
+    src = {"kind": "neurlz", "fields": {"w": w_entry}, "slice_axis": 0,
+           "compressor": "szlike"}
+    bounds = {"w": repro_torch.ErrorBound(rel=1e-2)}
+    t_ledger = ResidencyLedger(STREAM_BUDGET)
+    dst = ROOT / "build" / "chip_smoke" / "hurricane_w_transcoded.nlzs"
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    recoded = repro_torch.transcode(
+        src, str(dst), bounds, ledger=t_ledger, device=dev,
+        config=neurlz.NeurLZConfig(epochs=epochs, engine="streaming"))
+    torch.cuda.synchronize()
+    t_transcode = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    device_peak = torch.cuda.max_memory_allocated()
+    check(recoded.report["peak_resident_bytes"] <= STREAM_BUDGET,
+          f"transcode ledger peak {recoded.report['peak_resident_bytes']}")
+    check(t_ledger.current == 0, "the transcode left bytes charged")
+    served_w = want[("interp", "w")]
+    new_w = recoded.decode("w")
+    e = recoded.entry("w")
+    chk = regulation.check_bound(served_w, new_w, e["abs_eb"], "strict")
+    check(chk["ok"], f"transcoded w: max error {chk['max_abs_err']} > "
+                     f"{e['abs_eb']}")
+    t0 = time.perf_counter()
+    serial = repro_torch.NeurLZ(epochs=epochs, device=dev).compress(
+        {"w": served_w}, bounds)
+    torch.cuda.synchronize()
+    t_serial = time.perf_counter() - t0
+    sha = hashlib.sha256(arc_io.dumps(e)).hexdigest()
+    check(sha == hashlib.sha256(arc_io.dumps(serial["fields"]["w"])).hexdigest(),
+          "the transcoded entry differs from the serial recompress")
+    recoded.close()
+
+    out = {"max_bytes": SERVE_MAX_BYTES, "requests": len(burst),
+           "cold_burst_s": t_cold, "hot_hit_s": t_hot, "roi_s": t_roi,
+           "after_fault_s": t_after_fault, "decode_stats": stats,
+           "counters": counters, "ledger_peak_bytes": ledger.peak,
+           "transcode": {"epochs": epochs, "rel": 1e-2, "seconds": t_transcode,
+                         "serial_compress_s": t_serial,
+                         "abs_eb": e["abs_eb"],
+                         "max_err_over_eb": chk["max_abs_err"] / e["abs_eb"],
+                         "ledger_peak_bytes": recoded.report["peak_resident_bytes"],
+                         "entry_sha256": sha},
+           "main_decode_s": report["main_path"]["decode_s"],
+           "device_peak_bytes": device_peak, "launches": launches,
+           "served_equal_decode": True, "transcode_equals_serial": True}
+    print("serve_path", json.dumps(out))
+    report["serve_path"] = out
     return launches
 
 
@@ -1690,24 +1884,27 @@ def main() -> int:
     # of a path must have launched in it.
     main_launches, main_kept = main_path(dev, fields, args.epochs, report)
     cut = min(args.epochs, DURABLE_EPOCHS)
-    lorenzo_launches = lorenzo_path(dev, fields,
-                                    min(args.epochs, LORENZO_EPOCHS), report)
+    lorenzo_launches, lorenzo_kept = lorenzo_path(
+        dev, fields, min(args.epochs, LORENZO_EPOCHS), report)
     durable_launches, serial_cut = durable_path(dev, fields, cut, main_kept,
                                                 report)
     by_path = {"main": main_launches,
                "lorenzo": lorenzo_launches,
                "durable": durable_launches,
                "batched": batched_path(dev, fields, cut, main_kept,
-                                       serial_cut, report),
-               "streaming": streaming_path(dev, fields, args.epochs,
-                                           main_kept, report)}
+                                       serial_cut, report)}
+    by_path["streaming"], container = streaming_path(
+        dev, fields, args.epochs, main_kept, report)
+    by_path["serve"] = serve_path(dev, min(args.epochs, SERVE_EPOCHS),
+                                  main_kept, lorenzo_kept, container, report)
     single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
     path_kernels = {"main": single,
                     "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),
                     "durable": single,
                     "batched": ("conv2d3x3", "conv2d3x3_grouped",
                                 "conv2d3x3_grouped_bwd", "fused_enhance"),
-                    "streaming": single}
+                    "streaming": single,
+                    "serve": single + ("lorenzo3d_inv",)}
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")

@@ -17,11 +17,15 @@ stacked; ``NeurLZ.compress_to`` (and ``engine="streaming"``) streams a
 snapshot out of core under ``max_resident_bytes``, with ``resume=True``,
 and ``Archive.decode(name, roi=...)`` decodes one region.
 ``learn_residual=False`` runs the paper's direct-learning ablation.
+``ArchiveServer`` serves decoded fields to concurrent readers (coalesced
+decodes, a ledger-charged hot-field cache) and ``transcode`` re-targets a
+stored archive to new bounds; both load lazily from ``repro_torch.serve``.
 
 Subpackages: ``core`` (enhancer, trainer, regulation, conventional stage,
-bounds, serial and batched engines, archive and containers),
-``streaming`` (lazy field sources, the bounded-memory scheduler and its
-residency ledger, the async writer, ``iter_decompress``), ``compressors``
+bounds, serial and batched engines, archive and containers), ``serve``
+(the archive server and transcode), ``streaming`` (lazy field sources,
+the bounded-memory scheduler and its residency ledger, the async writer,
+``iter_decompress``), ``compressors``
 (registry, szlike, zfplike and the byte layer), ``kernels`` (CUDA kernels
 and their build), ``obs`` (telemetry), ``faults`` (injection, retry,
 degradation, the straggler watchdog of ``checkpoint``), ``optim``,
@@ -42,4 +46,15 @@ __all__ = ["NeurLZ", "Archive", "ErrorBound", "ModelConfig", "EngineConfig",
            "RegulationConfig", "NeurLZConfig", "join_config", "split_config",
            "open", "Telemetry", "TelemetryConfig", "FaultConfig",
            "FaultInjector", "InjectedFault", "RetryPolicy",
-           "CorruptArchiveError"]
+           "CorruptArchiveError", "ArchiveServer", "transcode"]
+
+
+def __getattr__(name: str):
+    # The serving tier loads on first touch: ``import repro_torch`` does not
+    # pay the serve chain's imports.
+    if name in ("ArchiveServer", "transcode"):
+        from . import serve
+        value = getattr(serve, name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -19,6 +19,10 @@
     arc.report["peak_resident_bytes"]                # out of core, lazy
     w = arc.decode("w", roi=(slice(10, 20),))        # one region
 
+    with repro_torch.ArchiveServer("snap.nlzs", max_bytes=1 << 30) as srv:
+        w = srv.decode("w")                          # coalesced, cached
+    repro_torch.transcode("snap.nlzs", "cheap.nlzs", rel_eb=1e-2)
+
 Configuration is split by concern as in the JAX package — ``ModelConfig``
 (the enhancer and its training), ``EngineConfig`` (which engine runs),
 ``RegulationConfig`` (the regulation mode) — and flattens losslessly into
@@ -32,6 +36,7 @@ from typing import Mapping
 
 from . import device as device_lib
 from . import faults as faults_lib
+from .core import bounds as bounds_lib
 from .core import neurlz
 from .core.archive_api import Archive
 from .core.neurlz import NeurLZConfig
@@ -135,6 +140,11 @@ class NeurLZ:
     def config(self) -> NeurLZConfig:
         return join_config(self.model, self.engine, self.regulation)
 
+    def replace(self, **flat_kwargs) -> "NeurLZ":
+        """A new session on this session's device with flat config fields
+        replaced."""
+        return NeurLZ(config=self.config, device=self.device, **flat_kwargs)
+
     def compress(self, fields: Mapping, bounds=None, *,
                  rel_eb: float | None = None, abs_eb: float | None = None,
                  collect_stats: bool = True,
@@ -206,9 +216,9 @@ class NeurLZ:
         this session's device, with its telemetry and faults, by this
         session's engine (``batched`` and ``streaming`` decode as
         ``serial`` does); ``reassemble=True`` joins blocked fields."""
-        if not (isinstance(archive, Archive) and archive.device == self.device):
-            arc = archive.to_dict() if isinstance(archive, Archive) else archive
-            archive = Archive(arc, device=self.device)
+        archive = (archive.on_device(self.device)
+                   if isinstance(archive, Archive)
+                   else Archive(archive, device=self.device))
         engine = "batched" if self.engine.engine == "batched" else "serial"
         return self._adopt(archive).decode_all(engine=engine,
                                                reassemble=reassemble)
@@ -224,3 +234,19 @@ def open(path, *, repair: bool = False, device=None) -> Archive:  # noqa: A001
     """:meth:`Archive.open`: ``repro_torch.open(path)`` decodes on ``cuda``
     unless ``device`` says otherwise."""
     return Archive.open(path, repair=repair, device=device)
+
+
+def __getattr__(name: str):
+    # The serving tier loads lazily: ``repro_torch.ArchiveServer`` and
+    # ``repro_torch.transcode`` should not make ``import repro_torch.api``
+    # pay the serve chain's imports.
+    if name in ("ArchiveServer", "transcode"):
+        from . import serve
+        value = getattr(serve, name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module 'repro_torch.api' has no attribute {name!r}")
+
+
+# Re-exported for the API surface: the coercion rules of ``bounds=``.
+resolve_bounds = bounds_lib.resolve_bounds

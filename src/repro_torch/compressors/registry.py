@@ -139,6 +139,10 @@ def names() -> list[str]:
     return sorted(_COMPRESSORS)
 
 
+def entries() -> list[CompressorEntry]:
+    return [_COMPRESSORS[n] for n in names()]
+
+
 def compress(x, rel_eb=None, *, abs_eb=None, compressor="szlike", device=None):
     """``(archive, rec)`` of the registered compressor ``compressor``."""
     return get(compressor).compress(x, rel_eb, abs_eb=abs_eb, device=device)

@@ -231,6 +231,11 @@ def save(path: str, obj) -> int:
     return len(data)
 
 
+def load(path: str):
+    with open(path, "rb") as f:
+        return loads(f.read())
+
+
 # ---------------------------------------------------------------------------
 # Streaming containers (v1 and the durable v2): records + index footer
 # ---------------------------------------------------------------------------

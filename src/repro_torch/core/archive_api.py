@@ -115,6 +115,21 @@ class Archive(Mapping):
             return arc
         return cls(arc, device=device)
 
+    def on_device(self, device) -> "Archive":
+        """This handle if it decodes on ``device``, else a handle over the
+        same archive that does: a container reopened from its path, any
+        other archive wrapped as its whole dict.  Telemetry and faults
+        carry over."""
+        device = device_lib.resolve(device)
+        if device == self.device:
+            return self
+        if self.streaming and self._path is not None:
+            out = Archive.open(self._path, repair=self.salvaged, device=device)
+        else:
+            out = Archive(self.to_dict(), device=device)
+        out.telemetry, out.faults = self.telemetry, self.faults
+        return out
+
     # -- introspection ------------------------------------------------------
 
     @property
@@ -291,7 +306,7 @@ class Archive(Mapping):
         if engine not in ("serial", "batched"):
             raise ValueError(f"unknown decode engine {engine!r}")
         if not self.streaming:
-            return neurlz.decompress(self._arc, self.device)
+            return neurlz.decompress_impl(self._arc, self.device)
         from ..streaming import pipeline
         return dict(pipeline.iter_decompress(self, reassemble=reassemble))
 

@@ -481,4 +481,4 @@ def decompress(arc, device=None) -> dict[str, np.ndarray]:
     """Batched decode on ``device`` (``cuda`` unless given): the serial
     decode.  Each field infers by its single-field graph, so there is
     nothing to fuse across fields, and the bytes are the serial engine's."""
-    return neurlz.decompress(arc, device)
+    return neurlz.decompress_impl(arc, device)

@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import traceback
+import warnings
 from typing import Mapping
 
 import numpy as np
@@ -119,6 +120,19 @@ def _aux_names(cfg: NeurLZConfig, name: str, fields) -> list[str]:
     if missing:
         raise KeyError(f"cross-field aux {missing} not in input fields")
     return aux
+
+
+_warned_shims: set[str] = set()
+
+
+def _warn_legacy(fn: str, repl: str) -> None:
+    """One ``DeprecationWarning`` per process per legacy dict-API shim."""
+    if fn in _warned_shims:
+        return
+    _warned_shims.add(fn)
+    warnings.warn(
+        f"repro_torch.core.{fn}() is a legacy dict-API shim; prefer {repl}",
+        DeprecationWarning, stacklevel=3)
 
 
 def _sync(device: torch.device) -> None:
@@ -366,6 +380,18 @@ def _enhance_field(x, rec, aux, aux_names, eb, conv_arc, fcfg, net_cfg, init,
     return entry, history, samples
 
 
+def compress(fields: Mapping[str, np.ndarray], rel_eb: float | None = None, *,
+             abs_eb: float | None = None, config: NeurLZConfig = NeurLZConfig(),
+             collect_stats: bool = True, bounds=None, device=None) -> dict:
+    """Compress a snapshot's fields into an archive dict.  Legacy dict-API
+    shim over :func:`compress_impl`: :class:`repro_torch.NeurLZ` and
+    :class:`repro_torch.Archive` are the first-class surface."""
+    _warn_legacy("compress", "repro_torch.NeurLZ(...).compress(...)")
+    return compress_impl(fields, rel_eb, abs_eb=abs_eb, config=config,
+                         collect_stats=collect_stats, bounds=bounds,
+                         device=device)
+
+
 def compress_impl(fields: Mapping[str, np.ndarray], rel_eb=None, *,
                   abs_eb=None, config: NeurLZConfig = NeurLZConfig(),
                   collect_stats: bool = True, device=None,
@@ -531,6 +557,14 @@ def decode_field_entry(e: dict, rec: np.ndarray, aux: list, slice_axis: int,
 
 def decompress(arc, device=None, *, engine: str = "serial"
                ) -> dict[str, np.ndarray]:
+    """Full decode.  Legacy dict-API shim over :func:`decompress_impl`
+    (prefer ``Archive.decode_all`` / ``Archive.decode``)."""
+    _warn_legacy("decompress", "Archive.decode_all(...) / Archive.decode(...)")
+    return decompress_impl(arc, device, engine=engine)
+
+
+def decompress_impl(arc, device=None, *, engine: str = "serial"
+                    ) -> dict[str, np.ndarray]:
     """Decode every field of an archive (dict or ``Archive``) on ``device``
     (``cuda`` unless given).  ``engine="batched"`` names
     :func:`repro_torch.core.batched_engine.decompress`, which is this serial
@@ -568,3 +602,28 @@ def field_bitrate(arc: dict, name: str, num_points: int) -> dict:
         "bitrate": metrics.bitrate(total, num_points),
         "conv_bitrate": metrics.bitrate(conv_b, num_points),
     }
+
+
+def save(path: str, arc) -> int:
+    """Write a whole-dict archive file.  Legacy dict-API shim: an
+    :class:`~repro_torch.core.archive_api.Archive` handle is materialized
+    first, so ``save(load(container))`` converts a streaming container into
+    the whole-dict format (``Archive.save`` keeps the native container)."""
+    _warn_legacy("save", "Archive.save(path)")
+    from . import archive_api
+    if isinstance(arc, archive_api.Archive):
+        arc = arc.to_dict()
+    return arc_io.save(path, arc)
+
+
+def load(path: str, device=None):
+    """Open an archive file of either format.  Legacy dict-API shim: a
+    whole-dict file loads as the archive dict, a streaming container as a
+    lazy, read-only :class:`~repro_torch.core.archive_api.Archive` on
+    ``device`` (``cuda`` unless given) that holds the file open until
+    closed."""
+    _warn_legacy("load", "repro_torch.Archive.open(path)")
+    if arc_io.is_streaming_archive(path):
+        from . import archive_api
+        return archive_api.Archive.open(path, device=device)
+    return arc_io.load(path)

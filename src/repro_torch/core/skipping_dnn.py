@@ -102,6 +102,15 @@ def tree_leaves(tree) -> list:
     return [tree[name][k] for name in LAYERS for k in ("b", "w")]
 
 
+def param_count(params) -> int:
+    """Number of weights of an enhancer: an :class:`nn.Module` or a
+    parameter tree (tensors or numpy arrays)."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    return sum(int(np.prod(p.shape)) for layer in params.values()
+               for p in layer.values())
+
+
 def _deconv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Stride-2 SAME 3×3 transpose conv via sub-pixel decomposition: output
     row ``2i+py`` only sees kernel taps ``dy ∈ {py, py+2}``, so each parity

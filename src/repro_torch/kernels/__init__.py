@@ -3,12 +3,14 @@ The device of the tensors picks the route: CUDA tensors launch the kernel,
 CPU tensors take the plain version.
 
 Each wrapper counts the calls that launched its kernel in a module-level
-integer, so a run can show that its path went through the kernels.
+integer, under one lock (``_build.COUNT_LOCK``: kernels launch from a
+server's dispatcher thread too), so a run can show that its path went
+through the kernels.
 ``KERNELS`` maps each kernel to its module and the name of its counter
 there (``conv2d3x3`` holds the forward and the backward, single-field
 and grouped, ``lorenzo3d`` the encode and the decode).
 """
-from . import conv2d3x3, fused_enhance, lorenzo3d
+from . import _build, conv2d3x3, fused_enhance, lorenzo3d
 
 KERNELS = {"conv2d3x3": (conv2d3x3, "launches"),
            "conv2d3x3_bwd": (conv2d3x3, "bwd_launches"),
@@ -20,9 +22,12 @@ KERNELS = {"conv2d3x3": (conv2d3x3, "launches"),
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
+    with _build.COUNT_LOCK:
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in KERNELS.values():
-        setattr(mod, attr, 0)
+    with _build.COUNT_LOCK:
+        for mod, attr in KERNELS.values():
+            setattr(mod, attr, 0)

@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# Guards the wrappers' launch counters: kernels launch from more than one
+# thread (a server's dispatcher thread beside the caller's), and a bare
+# ``+= 1`` on a module global can lose a count.
+COUNT_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:

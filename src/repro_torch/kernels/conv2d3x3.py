@@ -241,7 +241,8 @@ def conv2d3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
     if err:
         raise RuntimeError("conv2d3x3 launch failed: "
                            + lib.conv2d3x3_error_string(err).decode())
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return y
 
 
@@ -289,7 +290,8 @@ def conv2d3x3_bwd(g, y, x, w, *, stride: int = 1, relu: bool = True,
     if err:
         raise RuntimeError("conv2d3x3_bwd launch failed: "
                            + lib.conv2d3x3_bwd_error_string(err).decode())
-    bwd_launches += 1
+    with _build.COUNT_LOCK:
+        bwd_launches += 1
     return dx, dw, db
 
 
@@ -399,7 +401,8 @@ def conv2d3x3_grouped(x, w, b, *, stride: int = 1, relu: bool = True
     if err:
         raise RuntimeError("conv2d3x3_grouped launch failed: "
                            + lib.conv2d3x3_error_string(err).decode())
-    grouped_launches += 1
+    with _build.COUNT_LOCK:
+        grouped_launches += 1
     return y
 
 
@@ -460,7 +463,8 @@ def conv2d3x3_bwd_grouped(g, y, x, w, *, stride: int = 1, relu: bool = True,
     if err:
         raise RuntimeError("conv2d3x3_bwd_grouped launch failed: "
                            + lib.conv2d3x3_bwd_error_string(err).decode())
-    grouped_bwd_launches += 1
+    with _build.COUNT_LOCK:
+        grouped_bwd_launches += 1
     return dx, dw, db
 
 

@@ -104,5 +104,6 @@ def fused_enhance(z, dec, orig, eb: float, *, regulated: bool = False,
     if err:
         raise RuntimeError("fused_enhance launch failed: "
                            + lib.fused_enhance_error_string(err).decode())
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out, mask

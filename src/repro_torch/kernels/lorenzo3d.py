@@ -166,7 +166,8 @@ def lorenzo3d_fwd(x: torch.Tensor, eb, out_dtype: torch.dtype):
                             x.device.index or 0,
                             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "lorenzo3d_fwd")
-    fwd_launches += 1
+    with _build.COUNT_LOCK:
+        fwd_launches += 1
     return delta, unpred, rec
 
 
@@ -198,5 +199,6 @@ def lorenzo3d_inv(delta: torch.Tensor, eb) -> torch.Tensor:
                             delta.device.index or 0,
                             torch.cuda.current_stream(delta.device).cuda_stream)
     _raise_on(err, lib, "lorenzo3d_inv")
-    inv_launches += 1
+    with _build.COUNT_LOCK:
+        inv_launches += 1
     return rec

@@ -30,7 +30,10 @@ compression as a dataflow with a hard residency budget:
   the current group trains, and entry packing + archival run on the
   :class:`repro_torch.streaming.writer.AsyncArchiveWriter` thread behind a
   bounded queue.  Both threads do host work only; every CUDA call stays on
-  the calling thread, in the serial engine's order.
+  the calling thread, in the serial engine's order.  A source whose
+  ``load`` itself runs on the device (``loads_on_device = True``, as
+  :class:`repro_torch.serve.ArchiveSource`, which decodes) gets no reader
+  thread: each of its loads runs on the calling thread.
 
 Training goes through the batched engine's group helpers (whose
 strategies give the serial engine's bytes for the groups they accept) and
@@ -388,6 +391,9 @@ def compress(source, sink, rel_eb: float | None = None, *,
                                          bounds=resolved, device=device,
                                          telemetry=tel)
         want_traces = tel.enabled and tel.config.learning_traces
+        # A load that decodes on the device must not leave this thread.
+        lookahead = stream.prefetch and not getattr(src, "loads_on_device",
+                                                    False)
 
         def group_cost(group) -> dict[str, int]:
             cost = {}
@@ -573,7 +579,7 @@ def compress(source, sink, rel_eb: float | None = None, *,
                 # Reader-thread lookahead: load the next group's originals
                 # while this group trains on device (skipped, not blocked,
                 # when the budget cannot take both working sets at once).
-                if gi + 1 < len(order) and stream.prefetch:
+                if gi + 1 < len(order) and lookahead:
                     nxt = order[gi + 1]
                     cost = group_cost(nxt)
                     if ledger.fits(sum(cost.values())):

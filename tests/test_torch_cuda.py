@@ -599,3 +599,61 @@ def test_telemetry_changes_no_entry_and_no_launch(cuda_device):
     tel = runs["sample_psnr"][2]
     assert all(len(tel.trace(n)) == 2 and "sample_psnr" in tel.trace(n)[0]
                for n in fields)
+
+
+@pytest.mark.cuda
+def test_serve_on_gpu(cuda_device, tmp_path):
+    """The server decodes on the card from its dispatcher thread, equal to
+    ``Archive.decode`` on the card bit for bit, with the kernels counted
+    from that thread; a transcode whose source decodes on the card equals
+    the serial compress of the decoded fields."""
+    import threading
+
+    import repro_torch
+    from repro_torch import kernels, serve, streaming
+    from repro_torch.core import archive as arc_io
+    from repro_torch.core import neurlz
+    from repro_torch.data import fields as fields_lib
+
+    fields = fields_lib.make_fields("hurricane", (6, 40, 36), seed=3)
+    cfg = neurlz.NeurLZConfig(epochs=2, engine="streaming",
+                              cross_field={"w": ("precip",)})
+    path = str(tmp_path / "snap.nlzs")
+    streaming.compress(fields, path, 1e-3, config=cfg, device=cuda_device)
+    with repro_torch.Archive.open(path, device=cuda_device) as arc:
+        want = {n: arc.decode(n) for n in fields}
+    threads = set()
+    real = neurlz.decode_field_entry
+
+    def spy(*a, **k):
+        threads.add(threading.current_thread())
+        return real(*a, **k)
+    neurlz.decode_field_entry = spy
+    try:
+        kernels.reset_launch_counts()
+        srv = serve.ArchiveServer(path, max_bytes=1 << 30, auto_start=False,
+                                  device=cuda_device)
+        futs = {n: srv.submit(n) for n in fields}
+        srv.start()
+        got = {n: f.result(300) for n, f in futs.items()}
+        srv.close()
+    finally:
+        neurlz.decode_field_entry = real
+    counts = kernels.launch_counts()
+    assert threads == {srv._thread}
+    assert srv.decode_stats.batched == 1
+    assert counts["conv2d3x3"] > 0 and counts["fused_enhance"] == len(fields)
+    for n in fields:
+        assert got[n].tobytes() == want[n].tobytes(), n
+    # A handle on the CPU is reopened on the server's card.
+    with serve.ArchiveServer(repro_torch.Archive.open(path, device="cpu"),
+                             max_bytes=1 << 30, device=cuda_device) as srv:
+        assert srv._archives["default"].device.type == "cuda"
+        assert srv.decode("w").tobytes() == want["w"].tobytes()
+    out = serve.transcode(path, str(tmp_path / "re.nlzs"), rel_eb=1e-2,
+                          config=cfg, device=cuda_device)
+    serial = repro_torch.NeurLZ(epochs=2, cross_field={"w": ("precip",)},
+                                device=cuda_device).compress(want, rel_eb=1e-2)
+    for n in fields:
+        assert arc_io.dumps(out.entry(n)) == arc_io.dumps(serial["fields"][n]), n
+    out.close()

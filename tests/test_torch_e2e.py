@@ -335,6 +335,10 @@ DEFAULT_CUDA_CALLS = {
         epochs=1).compress_to({"w": x}, io.BytesIO(), rel_eb=REL_EB),
     "PipelineScheduler.run": lambda x, arc, files: streaming.PipelineScheduler(
         neurlz.NeurLZConfig(epochs=1)).run({"w": x}, io.BytesIO(), REL_EB),
+    "ArchiveServer": lambda x, arc, files: repro_torch.ArchiveServer(
+        files["container"], auto_start=False),
+    "transcode": lambda x, arc, files: repro_torch.transcode(
+        files["container"], io.BytesIO(), rel_eb=REL_EB),
 }
 
 

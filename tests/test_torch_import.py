@@ -1,5 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and running a small
-compress/decode on the CPU loads neither JAX nor any module of ``repro``."""
+compress/decode on the CPU, and serving a field through
+``repro_torch.ArchiveServer``, loads neither JAX nor any module of
+``repro``."""
 import os
 import subprocess
 import sys
@@ -17,6 +19,9 @@ arc = repro_torch.NeurLZ(epochs=1, device="cpu").compress(f, rel_eb=1e-2)
 dec = arc.decode_all()
 for name, x in f.items():
     assert np.abs(dec[name].astype(np.float64) - x).max() <= arc["fields"][name]["abs_eb"]
+import repro_torch.serve
+with repro_torch.ArchiveServer(arc, max_bytes=1 << 30, device="cpu") as srv:
+    assert srv.decode("w").tobytes() == dec["w"].tobytes()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
