@@ -84,10 +84,22 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    to ``rel=1e-2`` at SERVE_EPOCHS epochs under its own ledger, its entry
    equal by SHA-256 to ``NeurLZ.compress`` of the served ``w``, the new
    bound held;
-10. a ``zfplike`` conventional round trip on one full field;
-11. the launch count of every kernel over each path, counted from 0 just
-    before the path: each kernel of a path must have launched in it; and
-    each path's ``torch.cuda.max_memory_allocated``, reset before it.
+10. the lm path, the LM substrate's serving (``repro_torch.launch.serve``;
+    no kernel of the port, eager PyTorch): ``serve`` of the reduced
+    gemma-2b and qwen3-4b on the card; qwen3-4b at full width (36 layers,
+    d_model 2560, vocab 151,936) in float32, every position's teacher-
+    forced decode logits within LM_TOL of the forward's; qwen3-4b in its
+    bfloat16 and granite-moe-3b-a800m (40 experts, top 8) at full width,
+    each prefilled with a 32-token prompt at batch 4 and decoding 32
+    greedy tokens, the decode step timed against its bound (the weights
+    read once); one full-width float32 MoE layer of granite on the card
+    and the CPU, its routing (experts, slots, kept tokens) equal and its
+    output within MOE_TOL;
+11. a ``zfplike`` conventional round trip on one full field;
+12. the launch count of every kernel over each path, counted from 0 just
+    before the path: each kernel of a path must have launched in it (the
+    lm path launches none); and each path's
+    ``torch.cuda.max_memory_allocated``, reset before it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
 summed from a torch.profiler trace that must hold every launch of the
@@ -1803,6 +1815,223 @@ def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
     return launches
 
 
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 32   # the candidate cell qwen3-4b-serve
+LM_TOL = 2e-2        # decode vs forward, float32: rtol = atol, as the JAX
+#   package's tests/test_models_smoke.py holds its teacher-forced decode
+MOE_TOL = 1e-4       # MoE layer card vs CPU, float32 with TF32 off:
+#   |Δ| <= MOE_TOL * max|CPU| + 1e-5 (sums of <= 1536 terms in another order)
+
+
+def _lm_free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_serve_full(dev, cfg, seed: int, check) -> dict:
+    """``prefill_into_cache`` of a LM_PROMPT-token prompt at batch LM_BATCH
+    on the full-width model ``cfg`` (its own dtype), then LM_GEN greedy
+    tokens; the decode step timed against its bound (the parameter bytes
+    read once at HBM_BYTES_PER_S) and its device time from a trace of four
+    steps; the prefill's last logits beside the forward's (no limit)."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    torch.cuda.reset_peak_memory_stats()
+    model = M.build_model(cfg, model_axis=1)
+    t0 = time.perf_counter()
+    params = M.init_params(model, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()     # serving's own peak from here
+    leaves = list(model.parameters())
+    n_params = sum(p.numel() for p in leaves)
+    param_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    prompts = torch.from_numpy(TokenStream(cfg.vocab_size, LM_BATCH, LM_PROMPT,
+                                           seed=0).next_batch()).to(dev)
+    max_len = LM_PROMPT + LM_GEN
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache, pos = serve.prefill_into_cache(model, params, prompts,
+                                                      max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks, last = serve.greedy_decode(model, params, cache, logits, pos, LM_GEN)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all() and torch.isfinite(last).all())
+        toks = toks.cpu().numpy()
+        hidden = model.forward(params, {"tokens": prompts})
+        fwd_last = model._logits(params, hidden[:, -1:]).float()
+        gap = float((fwd_last - logits).abs().max())
+
+        # Device time of decode steps (cache slots past the run's end).
+        def steps():
+            for i in range(4):
+                model.decode_step(params, cache, prompts[:, i:i + 1],
+                                  max_len - 4 + i)
+        events = device_events(traced(steps))
+    steps_n = LM_GEN - 1
+    ms = decode_s / steps_n * 1e3
+    bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    width = logits.shape[-1]
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "n_params": n_params,
+           "param_bytes": param_bytes, "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+           "generated": int(toks.shape[1]), "init_s": init_s,
+           "prefill_s": prefill_s, "prefill_ms_per_step": prefill_s / LM_PROMPT * 1e3,
+           "decode_s": decode_s, "decode_ms_per_step": ms,
+           "decode_tok_per_s": LM_BATCH * steps_n / decode_s,
+           "step_bound_ms": bound_ms, "x_bound": ms / bound_ms,
+           "bound_tok_per_s": LM_BATCH / bound_ms * 1e3,
+           "device_ms_per_step": sum(e.time_range.elapsed_us() for e in events)
+           / 1e3 / 4,
+           "device_kernels_per_step": len(events) / 4,
+           "decode_vs_forward_max_abs": gap, "logits_finite": finite,
+           "tokens_in_padding": int((toks >= cfg.vocab_size).sum()),
+           "sample_tokens": toks[0, :10].tolist(),
+           "init_max_memory_allocated": init_peak,
+           "max_memory_allocated": max(init_peak, torch.cuda.max_memory_allocated()),
+           "serve_max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(finite, f"{cfg.name}: logits not finite")
+    check(out["generated"] == LM_GEN, f"{cfg.name}: {out['generated']} tokens")
+    # Rows past vocab_size are the padding to a multiple of 16, drawn like
+    # the others as in the JAX package, so a greedy token may land there.
+    check(bool(((toks >= 0) & (toks < width)).all()),
+          f"{cfg.name}: a token outside the logits' {width} entries")
+    del model, params, cache, logits, last, hidden
+    _lm_free()
+    return out
+
+
+def lm_path(dev, report: dict) -> dict:
+    """The LM substrate's serving path.  (a) ``launch.serve.serve`` on the
+    card for gemma-2b and qwen3-4b at the reduced preset; (b) qwen3-4b at
+    full width in float32 (36 layers, d_model 2560, vocab 151,936; TF32
+    off): every position's teacher-forced decode logits against the
+    forward's, within LM_TOL; (c) qwen3-4b at full width in its own
+    bfloat16 and (d) granite-moe-3b-a800m at full width (``model_axis=1``,
+    as serve builds it), each served as ``_lm_serve_full``; and one MoE
+    layer of granite at full width in float32 on the card and the CPU over
+    a [4, 32, 1536] input: kept tokens, experts and slots equal, output
+    within MOE_TOL.  The path launches none of the port's kernels."""
+    import dataclasses
+    from types import SimpleNamespace
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rmsnorm
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"lm path: {what}")
+
+    t_path = time.perf_counter()
+    kernels.reset_launch_counts()
+    out: dict = {"serve_reduced": {}}
+    for arch in ("gemma-2b", "qwen3-4b"):
+        args = SimpleNamespace(arch=arch, batch=2, prompt_len=16, gen=8, seed=0,
+                               device=str(dev))
+        rep = serve.serve(args)
+        check(rep["generated"] == args.gen, f"{arch} reduced: {rep}")
+        out["serve_reduced"][arch] = rep
+    _lm_free()
+
+    # (b) float32 at full width: decode equals the forward.
+    cfg = dataclasses.replace(configs.get_config("qwen3-4b"), dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = M.build_model(cfg, model_axis=1)
+    params = M.init_params(model, seed=0, device=dev)
+    prompts = torch.from_numpy(TokenStream(cfg.vocab_size, LM_BATCH, LM_PROMPT,
+                                           seed=0).next_batch()).to(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        # As the JAX package's test: ln_f once more on the forward's output
+        # (which ends in ln_f), then the head.
+        hidden = model.forward(params, {"tokens": prompts})
+        full = model._logits(params, rmsnorm(hidden, params["ln_f"],
+                                             cfg.norm_eps)).float()
+        cache = model.init_cache(LM_BATCH, LM_PROMPT)
+        excess, worst = -float("inf"), 0.0
+        for pos in range(LM_PROMPT):
+            logits, cache = model.decode_step(params, cache,
+                                              prompts[:, pos:pos + 1], pos)
+            d = (logits[:, 0] - full[:, pos]).abs()
+            excess = max(excess, float(
+                (d - (LM_TOL + LM_TOL * full[:, pos].abs())).max()))
+            worst = max(worst, float(d.max()))
+    f32 = {"arch": cfg.name, "dtype": "float32",
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "positions": LM_PROMPT, "batch": LM_BATCH,
+           "decode_vs_forward_max_abs": worst, "rtol": LM_TOL, "atol": LM_TOL,
+           "max_logit_abs": float(full.abs().max()),
+           "seconds": time.perf_counter() - t0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(excess <= 0.0, f"qwen3-4b float32: decode differs from the forward "
+                         f"by {worst} (> {LM_TOL} + {LM_TOL}·|logit|)")
+    out["qwen3_4b_f32"] = f32
+    del model, params, cache, full, hidden, logits
+    _lm_free()
+
+    out["qwen3_4b_bf16"] = _lm_serve_full(dev, configs.get_config("qwen3-4b"),
+                                          0, check)
+    gcfg = configs.get_config("granite-moe-3b-a800m")
+    out["granite_bf16"] = _lm_serve_full(dev, gcfg, 0, check)
+
+    # One MoE layer at full width, float32, on the card and on the CPU.
+    g32 = dataclasses.replace(gcfg, dtype="float32")
+    gen = torch.Generator().manual_seed(1)
+    p_cpu = moe.init(gen, g32, torch.float32, "cpu", model_axis=1)
+    x_cpu = torch.randn((LM_BATCH, LM_PROMPT, g32.d_model), generator=gen)
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    with torch.inference_mode():
+        xt = x_cpu.reshape(LM_BATCH, LM_PROMPT, -1)   # groups of S = 32
+        r_cpu = moe.route(p_cpu, g32, xt)
+        r_dev = moe.route(p_dev, g32, xt.to(dev))
+        y_cpu, aux_cpu = moe.forward(p_cpu, g32, x_cpu, model_axis=1)
+        y_dev, aux_dev = moe.forward(p_dev, g32, x_cpu.to(dev), model_axis=1)
+    same = {n: bool(torch.equal(a, b.cpu())) for n, a, b in
+            zip(("topi", "pos", "keep"), r_cpu[2:], r_dev[2:])}
+    err = float((y_dev.cpu() - y_cpu).abs().max())
+    lim = MOE_TOL * float(y_cpu.abs().max()) + 1e-5
+    keep = r_cpu[4]
+    out["moe_layer_f32"] = {
+        "shape": list(x_cpu.shape), "experts": g32.n_experts, "top_k": g32.top_k,
+        "capacity": moe.capacity(g32, LM_PROMPT),
+        "kept": int(keep.sum()), "choices": keep.numel(), "equal": same,
+        "max_abs_err": err, "limit": lim,
+        "aux_abs_err": float((aux_dev.cpu() - aux_cpu).abs())}
+    check(all(same.values()), f"MoE routing differs on the card: {same}")
+    check(err <= lim, f"MoE layer output: card vs CPU {err} > {lim}")
+    del p_dev, y_dev
+    _lm_free()
+
+    launches = kernels.launch_counts()
+    out["launches"] = launches
+    out["device_peak_bytes"] = max(out[k]["max_memory_allocated"] for k in
+                                   ("qwen3_4b_f32", "qwen3_4b_bf16", "granite_bf16"))
+    out["seconds"] = time.perf_counter() - t_path
+    for k in ("qwen3_4b_bf16", "granite_bf16"):
+        r = out[k]
+        print(f"lm {k}: {r['n_params']:,} params, prefill {r['prefill_s']:.3f} s, "
+              f"decode {r['decode_ms_per_step']:.3f} ms/step "
+              f"({r['decode_tok_per_s']:.1f} tok/s; bound {r['step_bound_ms']:.3f} "
+              f"ms, x{r['x_bound']:.2f}; device {r['device_ms_per_step']:.3f} "
+              f"ms/step), max_memory_allocated {r['max_memory_allocated']:,} "
+              f"(serving {r['serve_max_memory_allocated']:,})")
+    print("lm_path", json.dumps(out))
+    report["lm_path"] = out
+    return launches
+
+
 def zfplike_round_trip(dev, x, report: dict) -> None:
     """The ``zfplike`` conventional stage on one full field: the bound
     holds and decode equals the encoder's reconstruction."""
@@ -1897,6 +2126,7 @@ def main() -> int:
         dev, fields, args.epochs, main_kept, report)
     by_path["serve"] = serve_path(dev, min(args.epochs, SERVE_EPOCHS),
                                   main_kept, lorenzo_kept, container, report)
+    by_path["lm"] = lm_path(dev, report)
     single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
     path_kernels = {"main": single,
                     "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),
@@ -1904,7 +2134,8 @@ def main() -> int:
                     "batched": ("conv2d3x3", "conv2d3x3_grouped",
                                 "conv2d3x3_grouped_bwd", "fused_enhance"),
                     "streaming": single,
-                    "serve": single + ("lorenzo3d_inv",)}
+                    "serve": single + ("lorenzo3d_inv",),
+                    "lm": ()}   # the LM has no Pallas kernel, so none here
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")

@@ -29,7 +29,10 @@ the bounded-memory scheduler and its residency ledger, the async writer,
 (registry, szlike, zfplike and the byte layer), ``kernels`` (CUDA kernels
 and their build), ``obs`` (telemetry), ``faults`` (injection, retry,
 degradation, the straggler watchdog of ``checkpoint``), ``optim``,
-``data`` (the synthetic Nyx, Miranda and Hurricane fields).
+``data`` (the synthetic Nyx, Miranda and Hurricane fields, and the LM's
+token stream).  The off-paper LM substrate's serving path loads on its
+own: ``configs`` (the ten archs), ``models`` (the attention families) and
+``launch.serve``.
 """
 from .api import (EngineConfig, ModelConfig, NeurLZ, RegulationConfig,
                   join_config, open, split_config)

@@ -1,0 +1,203 @@
+"""GQA/MQA attention with qk-norm, RoPE, sliding windows, and a KV cache.
+
+Train/prefill path computes full (optionally windowed) causal attention;
+decode path attends one new token against a fixed-capacity cache.  Head
+projections keep the JAX package's tensor-parallel names (``w_in`` /
+``w_out``).  That package pins the sharding of q, k, v and the output
+(``repro.distributed.sharding.constrain``); on one device those pins are
+no-ops, so the port leaves them out, and the distributed slice brings
+them back.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .layers import apply_rope, dense_init, head_rmsnorm, zeros
+
+NEG = -1e30
+
+
+def init(gen, cfg, dtype, device, lead: tuple = ()):
+    d, hd = cfg.d_model, cfg.hd
+    p = {
+        "w_q_in": dense_init(gen, d, cfg.n_heads * hd, dtype, device, lead=lead),
+        "w_k_in": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device, lead=lead),
+        "w_v_in": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device, lead=lead),
+        "w_o_out": dense_init(gen, cfg.n_heads * hd, d, dtype, device,
+                              scale=1.0 / np.sqrt(cfg.n_heads * hd), lead=lead),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = zeros((hd,), dtype, device, lead)
+        p["k_norm"] = zeros((hd,), dtype, device, lead)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions, theta):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["w_q_in"]).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p["w_k_in"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p["w_v_in"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg=None):
+    """q: [B,S,H,D]; k,v: [B,T,KV,D]; mask: [B or 1, 1, S, T] additive.
+
+    Dense path — used for decode (S=1) and small shapes; longer sequences go
+    through :func:`_sdpa_chunked`.  Scores in float32, probabilities cast to
+    ``v.dtype`` before the PV product, as the JAX package does."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    groups = h // kv
+    q = q.reshape(b, s, kv, groups, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / np.sqrt(hd)
+    scores = scores + mask[:, :, None, :, :]     # broadcast over groups
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, h, hd)
+
+
+def _sdpa_chunked(q, k, v, cfg=None, *, causal: bool, window: int | None,
+                  cq: int = 512, ck: int = 1024, skip_uncausal: bool = False):
+    """Flash-style online-softmax attention over chunks: O(S·chunk) memory,
+    never materialising the [S, T] score matrix.  Plain PyTorch loops over
+    the q chunks and, inside, the kv chunks, with the JAX package's additive
+    masks and update order.
+
+    ``skip_uncausal=True`` enumerates only the lower-triangular (and
+    in-window) chunk pairs; otherwise every pair is visited with masking.
+    """
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    cq = min(cq, s)
+    ck = min(ck, s)
+    if s % cq or s % ck:
+        raise ValueError(f"sequence {s} must divide by the chunks {cq}, {ck}")
+    nq, nk = s // cq, s // ck
+    dev = q.device
+    qc = q.reshape(b, nq, cq, kv, g, hd).float() / np.sqrt(hd)
+    kc = k.reshape(b, nk, ck, kv, hd).float()
+    vc = v.reshape(b, nk, ck, kv, hd).float()
+
+    def bias_for(i, j):
+        """Additive float32 mask bias [cq, ck]."""
+        qpos = i * cq + torch.arange(cq, device=dev)
+        kpos = j * ck + torch.arange(ck, device=dev)
+        bias = torch.zeros((cq, ck), dtype=torch.float32, device=dev)
+        if causal:
+            bias = bias + torch.where(kpos[None, :] <= qpos[:, None], 0.0, NEG)
+        if window is not None:
+            bias = bias + torch.where((qpos[:, None] - kpos[None, :]) < window,
+                                      0.0, NEG)
+        return bias
+
+    def row_for(i, js):
+        """One q-chunk against the kv chunks listed in ``js``."""
+        qblk = qc[:, i]                                          # [b,cq,kv,g,d]
+        m = torch.full((b, cq, kv, g), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, cq, kv, g), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, cq, kv, g, hd), dtype=torch.float32, device=dev)
+        for j in js:
+            sij = torch.einsum("bqkgd,btkd->bqkgt", qblk, kc[:, j])
+            sij = sij + bias_for(i, j)[None, :, None, None, :]
+            m_new = torch.maximum(m, sij.amax(-1))
+            p = torch.exp(sij - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqkgt,btkd->bqkgd",
+                                                        p, vc[:, j])
+            m = m_new
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    rows = []
+    for i in range(nq):
+        if skip_uncausal and causal:
+            js = [j for j in range(nk)
+                  if (j * ck <= i * cq + cq - 1)
+                  and (window is None or (i * cq - (j * ck + ck - 1)) < window)]
+        else:
+            js = range(nk)
+        rows.append(row_for(i, js))
+    out = torch.stack(rows, dim=1)                               # [b,nq,cq,kv,g,d]
+    return out.reshape(b, s, h, hd).to(v.dtype)
+
+
+def causal_mask(s: int, window: int | None, dtype=torch.float32, device=None):
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    allow = j <= i
+    if window is not None:
+        allow &= (i - j) < window
+    return torch.where(allow, 0.0, NEG).to(dtype)[None, None]      # [1,1,S,S]
+
+
+def full_mask(s: int, dtype=torch.float32, device=None):
+    return torch.zeros((1, 1, s, s), dtype=dtype, device=device)
+
+
+DENSE_SDPA_MAX = 1024  # dense path up to this length, chunked beyond
+
+
+def forward(p, cfg, x, positions, *, window=None, theta=None, mask=None,
+            skip_uncausal: bool = False):
+    """Train/prefill attention.  Returns (out, (k, v)) for cache capture."""
+    theta = cfg.rope_theta if theta is None else theta
+    q, k, v = _project_qkv(p, cfg, x, positions, theta)
+    s = x.shape[1]
+    if s <= DENSE_SDPA_MAX:
+        if mask is None:
+            mask = (causal_mask(s, window, device=x.device) if cfg.causal
+                    else full_mask(s, device=x.device))
+        out = _sdpa(q, k, v, mask, cfg)
+    else:
+        out = _sdpa_chunked(q, k, v, cfg, causal=cfg.causal, window=window,
+                            skip_uncausal=skip_uncausal)
+    b = x.shape[0]
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["w_o_out"]
+    return out, (k, v)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device, lead: tuple = ()):
+    shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(p, cfg, x, cache, pos: int, *, window=None, theta=None,
+                ring: bool = False):
+    """One-token decode.  x: [B,1,D]; pos: int (same for all rows).
+
+    Writes the new key and value into ``cache`` in place and returns
+    (out [B,1,D], cache).  ``ring=True`` treats the cache as a circular
+    buffer of the last ``cache_len`` tokens (sliding-window layers cache
+    only the window): writes wrap, and a slot can be attended iff it has
+    been written (``j <= pos`` before the first wrap, every slot after).
+    RoPE always uses the true absolute position.
+    """
+    theta = cfg.rope_theta if theta is None else theta
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, theta)
+    t = cache["k"].shape[1]
+    write = pos % t if ring else pos
+    cache["k"][:, write] = k_new[:, 0]
+    cache["v"][:, write] = v_new[:, 0]
+    j = torch.arange(t, device=x.device)
+    if ring:
+        allow = (j <= pos) | (pos >= t)
+    else:
+        allow = j <= pos
+        if window is not None:
+            allow &= (pos - j) < window
+    mask = torch.where(allow, 0.0, NEG)[None, None, None, :]       # [1,1,1,T]
+    out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["w_o_out"]
+    return out, cache

@@ -1,0 +1,20 @@
+"""Gated MLP (SwiGLU / GeGLU)."""
+from __future__ import annotations
+
+from .layers import activation, dense_init
+
+
+def init(gen, d_model: int, d_ff: int, dtype, device, lead: tuple = ()):
+    return {
+        "w_gate_in": dense_init(gen, d_model, d_ff, dtype, device, lead=lead),
+        "w_up_in": dense_init(gen, d_model, d_ff, dtype, device, lead=lead),
+        "w_down_out": dense_init(gen, d_ff, d_model, dtype, device, lead=lead),
+    }
+
+
+def forward(p, x, act: str = "silu"):
+    # The JAX package pins h's sharding here (``constrain``); on one device
+    # that is a no-op, and the distributed slice of the port brings it back.
+    g = activation(act)(x @ p["w_gate_in"])
+    h = g * (x @ p["w_up_in"])
+    return h @ p["w_down_out"]

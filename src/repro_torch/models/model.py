@@ -1,0 +1,125 @@
+"""Model registry, demo inputs, step functions and parameters.
+
+``make_prefill_step`` / ``make_encode_step`` / ``make_decode_step`` are the
+serving functions (the decode step is the inner loop: one new token against
+the KV caches).  ``init_params`` draws a model's parameters on a device;
+``params_from_jax`` carries the JAX package's parameters across, and
+``flatten_params`` gives a model's parameters under the JAX package's
+checkpoint keys.  The train step and the dry-run specs are later slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import device as device_lib
+from ..configs.base import ModelConfig
+from .transformer import Model
+
+
+def build_model(cfg: ModelConfig, model_axis: int = 16) -> Model:
+    # model_axis sizes the padded expert axis (moe.padded_experts): keep the
+    # JAX package's default; the serving driver passes 1.
+    return Model(cfg, model_axis=model_axis)
+
+
+def demo_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+               device=None):
+    """A random batch of the model's inputs, the JAX package's values for
+    the same seed (smoke tests / examples)."""
+    dev = device_lib.resolve(device)
+    dt = cfg.params_dtype
+    rng = np.random.default_rng(seed)
+
+    def tensor(a, dtype):
+        return torch.as_tensor(a).to(dtype).to(dev)
+
+    if cfg.family == "audio":
+        return {
+            "features": tensor(rng.standard_normal((batch, seq, cfg.d_model)), dt),
+            "mask": tensor(rng.random((batch, seq)) < max(cfg.mask_ratio, 0.08),
+                           torch.bool),
+            "targets": tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                              torch.int32),
+        }
+    if cfg.family == "vlm":
+        s_img = cfg.frontend_tokens
+        return {
+            "tokens": tensor(rng.integers(0, cfg.vocab_size, (batch, seq - s_img)),
+                             torch.int32),
+            "image_embeds": tensor(
+                rng.standard_normal((batch, s_img, cfg.d_model)) * 0.02, dt),
+        }
+    return {"tokens": tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                             torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(model: Model):
+    """Forward only: last-position logits of the full prompt (serving
+    prefill)."""
+
+    def prefill_step(params, batch):
+        hidden = model.forward(params, batch)
+        return model._logits(params, hidden[:, -1:]).float()
+
+    return prefill_step
+
+
+def make_encode_step(model: Model):
+    """Encoder-only forward (hubert): per-frame logits."""
+
+    def encode_step(params, batch):
+        hidden = model.forward(params, batch)
+        return model._logits(params, hidden).float()
+
+    return encode_step
+
+
+def make_decode_step(model: Model):
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(model: Model, seed: int = 0, device=None) -> dict:
+    """Draw the model's parameters on ``device`` (``cuda`` unless given)
+    from a generator seeded with ``seed``, register them on the model and
+    return the tree.  The values are the port's own, not the JAX
+    package's."""
+    dev = device_lib.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return model.load_params(model.init(gen))
+
+
+def _to_tensor(a, dev) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")   # owned and writable
+    if a.dtype.name == "bfloat16":          # ml_dtypes' numpy dtype
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def params_from_jax(tree: dict, device=None) -> dict:
+    """The JAX package's parameter tree (a nested dict of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, init_params(model))``) as the port's tree on
+    ``device``, dtypes kept.  Register it with ``model.load_params``."""
+    dev = device_lib.resolve(device)
+
+    def carry(t):
+        return {k: carry(v) if isinstance(v, dict) else _to_tensor(v, dev)
+                for k, v in t.items()}
+    return carry(tree)
+
+
+def flatten_params(model: Model) -> dict[str, torch.Tensor]:
+    """The model's parameters under the JAX package's checkpoint keys
+    (``layers/attn/w_q_in``)."""
+    return {name.replace(".", "/"): p for name, p in model.named_parameters()}

@@ -1,0 +1,370 @@
+"""Model stacks of the attention families: dense, vlm, moe and audio.
+
+The parameters are a nested dict of tensors with the JAX package's tree:
+the same keys, the same nesting and the same stacked leading axes (a
+``layers`` stack of ``[L, ...]`` leaves; gemma3's ``units`` of
+``[n_units, pattern_local + pattern_global, ...]`` and its windowed
+``rem``; deepseek's ``dense_layers`` before its MoE ``layers``).
+:class:`Model` registers that tree as its parameters, so
+``model.named_parameters()`` with ``.`` read as ``/`` gives the JAX
+package's checkpoint keys (``layers/attn/w_q_in``), and checkpoints are
+interchangeable between the two packages.
+
+The JAX package scans each stack (``lax.scan``) under ``jax.checkpoint``;
+the port runs a Python loop over the stacked axis, over views of each
+layer's slice.  Decode writes the KV caches in place.  The recurrent
+families (hybrid, ssm) are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import attention, mlp, moe
+from .layers import activation, dense_init, embed_init, rmsnorm, zeros
+
+
+def pad_vocab(v: int, mult: int = 16) -> int:
+    return int(np.ceil(v / mult) * mult)
+
+
+def unstack(tree: dict) -> list[dict]:
+    """Views of each index of a tree stacked on its leading axis."""
+    parts = {k: unstack(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# block initializers: one draw for a whole stack (``lead`` = stacked axes)
+# ---------------------------------------------------------------------------
+
+def _attn_mlp_init(gen, cfg, dtype, device, lead, d_ff=None):
+    return {
+        "ln1": zeros((cfg.d_model,), dtype, device, lead),
+        "attn": attention.init(gen, cfg, dtype, device, lead),
+        "ln2": zeros((cfg.d_model,), dtype, device, lead),
+        "mlp": mlp.init(gen, cfg.d_model, d_ff or cfg.d_ff, dtype, device, lead),
+    }
+
+
+def _attn_moe_init(gen, cfg, dtype, device, lead, model_axis):
+    return {
+        "ln1": zeros((cfg.d_model,), dtype, device, lead),
+        "attn": attention.init(gen, cfg, dtype, device, lead),
+        "ln2": zeros((cfg.d_model,), dtype, device, lead),
+        "moe": moe.init(gen, cfg, dtype, device, model_axis, lead),
+    }
+
+
+# ---------------------------------------------------------------------------
+# block steps
+# ---------------------------------------------------------------------------
+
+def _attn_mlp_fwd(p, cfg, x, positions, window, theta):
+    h, _ = attention.forward(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
+                             positions, window=window, theta=theta,
+                             skip_uncausal=cfg.attn_skip_uncausal)
+    x = x + h
+    x = x + mlp.forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return x
+
+
+def _attn_moe_fwd(p, cfg, x, positions, model_axis):
+    h, _ = attention.forward(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
+                             positions, skip_uncausal=cfg.attn_skip_uncausal)
+    x = x + h
+    y, aux = moe.forward(p["moe"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps),
+                         model_axis=model_axis)
+    return x + y, aux
+
+
+def _attn_decode(p, cfg, x, c, pos, window=None, theta=None, ring=False):
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    o, _ = attention.decode_step(p["attn"], cfg, h, c, pos, window=window,
+                                 theta=theta, ring=ring)
+    return x + o
+
+
+def _attn_mlp_decode(p, cfg, x, c, pos, window=None, theta=None, ring=False):
+    x = _attn_decode(p, cfg, x, c, pos, window, theta, ring)
+    return x + mlp.forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+
+
+# ---------------------------------------------------------------------------
+# parameters as a module
+# ---------------------------------------------------------------------------
+
+class _Tree(nn.Module):
+    """One level of a parameter tree: leaves as parameters, dicts as
+    submodules."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        _register(self, tree)
+
+
+def _register(module: nn.Module, tree: dict) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            module.add_module(k, _Tree(v))
+        else:
+            if not isinstance(v, nn.Parameter):
+                v = nn.Parameter(v, requires_grad=False)
+            module.register_parameter(k, v)
+
+
+def _tree_of(module: nn.Module) -> dict:
+    out: dict[str, Any] = dict(module._parameters)
+    out.update({k: _tree_of(m) for k, m in module._modules.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# model families
+# ---------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """init / forward / decode of one config, holding its parameter tree.
+
+    The methods take the tree explicitly, as the JAX package's do
+    (``forward(params, batch)``, ``decode_step(params, cache, tokens,
+    pos)``); ``load_params`` registers a tree as the module's parameters
+    and ``params`` gives it back."""
+
+    FAMILIES = ("dense", "vlm", "moe", "audio")
+
+    def __init__(self, cfg, model_axis: int = 16):
+        super().__init__()
+        if cfg.family in ("hybrid", "ssm"):
+            raise NotImplementedError(
+                f"{cfg.name}: the recurrent families (hybrid through ssm.py, "
+                "ssm through xlstm.py) are the port's eleventh slice, still "
+                "to come (ROADMAP §1)")
+        if cfg.family not in self.FAMILIES:
+            raise ValueError(cfg.family)
+        self.cfg = cfg
+        self.model_axis = model_axis
+        self._last_aux = None
+
+    # ---- parameters ---------------------------------------------------------
+    def load_params(self, tree: dict) -> dict:
+        """Register ``tree`` as this module's parameters (replacing any
+        earlier tree) and return it as parameters."""
+        for k in list(self._parameters):
+            del self._parameters[k]
+        for k in list(self._modules):
+            del self._modules[k]
+        _register(self, tree)
+        return self.params
+
+    @property
+    def params(self) -> dict:
+        return _tree_of(self)
+
+    # ---- init -------------------------------------------------------------
+    def init(self, gen: torch.Generator) -> dict:
+        """A fresh parameter tree, drawn from ``gen`` on its device."""
+        cfg = self.cfg
+        dtype = cfg.params_dtype
+        dev = gen.device
+        vpad = pad_vocab(cfg.vocab_size)
+        params: dict[str, Any] = {
+            "embed": embed_init(gen, vpad, cfg.d_model, dtype, dev),
+            "ln_f": zeros((cfg.d_model,), dtype, dev),
+        }
+        if not cfg.tie_embeddings:
+            params["w_unembed_in"] = dense_init(gen, cfg.d_model, vpad, dtype, dev)
+
+        fam = cfg.family
+        if fam in ("dense", "vlm"):
+            if cfg.pattern_local:  # gemma3 local:global units
+                unit = cfg.pattern_local + cfg.pattern_global
+                n_units = cfg.n_layers // unit
+                rem = cfg.n_layers - n_units * unit
+                params["units"] = _attn_mlp_init(gen, cfg, dtype, dev,
+                                                 (n_units, unit))
+                if rem:
+                    params["rem"] = _attn_mlp_init(gen, cfg, dtype, dev, (rem,))
+            else:
+                params["layers"] = _attn_mlp_init(gen, cfg, dtype, dev,
+                                                  (cfg.n_layers,))
+            if fam == "vlm":
+                params["proj"] = {  # 2-layer multimodal projector (llava)
+                    "w1_in": dense_init(gen, cfg.d_model, cfg.d_model, dtype, dev),
+                    "w2_in": dense_init(gen, cfg.d_model, cfg.d_model, dtype, dev),
+                }
+        elif fam == "moe":
+            nd = cfg.first_dense_layers
+            if nd:
+                params["dense_layers"] = _attn_mlp_init(
+                    gen, cfg, dtype, dev, (nd,), d_ff=cfg.d_ff_dense)
+            params["layers"] = _attn_moe_init(gen, cfg, dtype, dev,
+                                              (cfg.n_layers - nd,),
+                                              self.model_axis)
+        else:  # audio
+            params["in_proj_in"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                              dtype, dev)
+            params["mask_embed"] = zeros((cfg.d_model,), dtype, dev)
+            params["layers"] = _attn_mlp_init(gen, cfg, dtype, dev,
+                                              (cfg.n_layers,))
+        return params
+
+    # ---- embedding / head ---------------------------------------------------
+    def _embed(self, params, tokens):
+        # The JAX package contracts a one-hot matrix with the table for
+        # vocabularies of 8192 or more (it partitions under SPMD).  One
+        # nonzero product plus zeros is exact, so a gather gives the same
+        # bits.
+        cfg = self.cfg
+        x = F.embedding(tokens.long(), params["embed"])
+        if cfg.embed_scale:
+            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def _logits(self, params, x):
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"].T
+        return x @ params["w_unembed_in"]
+
+    # ---- forward (train/prefill) -------------------------------------------
+    def forward(self, params, batch):
+        """Final hidden states (after ``ln_f``) of a batch."""
+        cfg = self.cfg
+        fam = cfg.family
+        self._last_aux = None
+        if fam == "audio":
+            x = batch["features"].to(cfg.params_dtype) @ params["in_proj_in"]
+            mask = batch["mask"]
+            x = torch.where(mask[..., None], params["mask_embed"][None, None], x)
+        elif fam == "vlm":
+            tok = self._embed(params, batch["tokens"])
+            img = batch["image_embeds"].to(cfg.params_dtype)
+            img = (activation("gelu")(img @ params["proj"]["w1_in"])
+                   @ params["proj"]["w2_in"])
+            x = torch.cat([img, tok], dim=1)
+        else:
+            x = self._embed(params, batch["tokens"])
+        b, s = x.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        x = self._run_stack(params, x, positions)
+        return rmsnorm(x, params["ln_f"], cfg.norm_eps)
+
+    def _run_stack(self, params, x, positions):
+        cfg = self.cfg
+        if cfg.family == "moe":
+            for p in unstack(params["dense_layers"]) if "dense_layers" in params else ():
+                x = _attn_mlp_fwd(p, cfg, x, positions, None, cfg.rope_theta)
+            auxs = []
+            for p in unstack(params["layers"]):
+                x, aux = _attn_moe_fwd(p, cfg, x, positions, self.model_axis)
+                auxs.append(aux)
+            self._last_aux = torch.stack(auxs).mean()
+            return x
+        if cfg.pattern_local:
+            for unit_p in unstack(params["units"]):
+                layers = unstack(unit_p)
+                for p in layers[:cfg.pattern_local]:
+                    x = _attn_mlp_fwd(p, cfg, x, positions, cfg.window_size,
+                                      cfg.rope_theta)
+                for p in layers[cfg.pattern_local:]:
+                    x = _attn_mlp_fwd(p, cfg, x, positions, None,
+                                      cfg.rope_theta * 100.0)
+            for p in unstack(params["rem"]) if "rem" in params else ():
+                x = _attn_mlp_fwd(p, cfg, x, positions, cfg.window_size,
+                                  cfg.rope_theta)
+            return x
+        for p in unstack(params["layers"]):
+            x = _attn_mlp_fwd(p, cfg, x, positions, cfg.window_size,
+                              cfg.rope_theta)
+        return x
+
+    # ---- decode -------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int):
+        """Zeroed KV caches, stacked like the layers, on the device of the
+        registered parameters."""
+        cfg = self.cfg
+        dtype = cfg.params_dtype
+        dev = self.embed.device
+
+        def stack(lead, length):
+            return attention.init_cache(cfg, batch, length, dtype, dev, lead)
+
+        if cfg.family in ("dense", "vlm"):
+            if cfg.pattern_local:
+                unit = cfg.pattern_local + cfg.pattern_global
+                n_units = cfg.n_layers // unit
+                rem = cfg.n_layers - n_units * unit
+                # Sliding-window layers only cache the window (the gemma3
+                # memory win); global layers cache the full context.
+                local_len = min(max_len, (cfg.window_size or max_len))
+                cache = {
+                    "units_local": stack((n_units, cfg.pattern_local), local_len),
+                    "units_global": stack((n_units, cfg.pattern_global), max_len),
+                }
+                if rem:
+                    cache["rem"] = stack((rem,), local_len)
+                return cache
+            return {"layers": stack((cfg.n_layers,), max_len)}
+        if cfg.family == "moe":
+            nd = cfg.first_dense_layers
+            cache = {}
+            if nd:
+                cache["dense_layers"] = stack((nd,), max_len)
+            cache["layers"] = stack((cfg.n_layers - nd,), max_len)
+            return cache
+        raise ValueError(cfg.family)  # audio: encoder-only, no decode
+
+    def decode_step(self, params, cache, tokens, pos):
+        """One token for every sequence.  tokens: [B,1]; pos: int.  Returns
+        float32 logits [B,1,Vpad] and the cache, written in place."""
+        cfg = self.cfg
+        pos = int(pos)
+        x = self._embed(params, tokens)
+
+        if cfg.family in ("dense", "vlm"):
+            if cfg.pattern_local:
+                for unit_p, cl, cg in zip(unstack(params["units"]),
+                                          unstack(cache["units_local"]),
+                                          unstack(cache["units_global"])):
+                    layers = unstack(unit_p)
+                    # Windowed layers cache only the window -> ring buffer.
+                    for p, c in zip(layers[:cfg.pattern_local], unstack(cl)):
+                        x = _attn_mlp_decode(p, cfg, x, c, pos, cfg.window_size,
+                                             cfg.rope_theta, ring=True)
+                    for p, c in zip(layers[cfg.pattern_local:], unstack(cg)):
+                        x = _attn_mlp_decode(p, cfg, x, c, pos, None,
+                                             cfg.rope_theta * 100.0)
+                if "rem" in params:
+                    for p, c in zip(unstack(params["rem"]), unstack(cache["rem"])):
+                        x = _attn_mlp_decode(p, cfg, x, c, pos, cfg.window_size,
+                                             ring=True)
+            else:
+                for p, c in zip(unstack(params["layers"]),
+                                unstack(cache["layers"])):
+                    x = _attn_mlp_decode(p, cfg, x, c, pos, cfg.window_size)
+        elif cfg.family == "moe":
+            if "dense_layers" in params:
+                for p, c in zip(unstack(params["dense_layers"]),
+                                unstack(cache["dense_layers"])):
+                    x = _attn_mlp_decode(p, cfg, x, c, pos)
+            for p, c in zip(unstack(params["layers"]), unstack(cache["layers"])):
+                x = _attn_decode(p, cfg, x, c, pos)
+                # One token a row: routing groups of one (g_sz = 1), so the
+                # capacities differ from the forward's groups of S.
+                y, _ = moe.forward(p["moe"], cfg,
+                                   rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                   model_axis=self.model_axis)
+                x = x + y
+        else:
+            raise ValueError(cfg.family)
+
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        return self._logits(params, x).float(), cache

@@ -657,3 +657,49 @@ def test_serve_on_gpu(cuda_device, tmp_path):
     for n in fields:
         assert arc_io.dumps(out.entry(n)) == arc_io.dumps(serial["fields"][n]), n
     out.close()
+
+
+LM_ARCHS = ["qwen3-4b", "gemma-2b", "gemma3-4b", "granite-moe-3b-a800m",
+            "deepseek-moe-16b", "llava-next-34b", "hubert-xlarge"]
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.detach().to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_on_gpu_matches_cpu(cuda_device, arch):
+    """The reduced model on the card against the same weights on the CPU:
+    forward hidden states and every decode position's logits, TF32 off
+    (float32 sums in other orders: |Δ| <= 1e-4 · max|CPU| + 1e-5)."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced(arch)
+    cpu = M.build_model(cfg, model_axis=1)
+    params = M.init_params(cpu, seed=0, device="cpu")
+    gpu = M.build_model(cfg, model_axis=1)
+    gpu.load_params(_to(params, cuda_device))
+
+    def close(got, want):
+        got, want = got.float().cpu(), want.float()
+        assert got.shape == want.shape
+        lim = 1e-4 * float(want.abs().max()) + 1e-5
+        assert float((got - want).abs().max()) <= lim
+
+    batch = M.demo_batch(cfg, 2, 20, seed=1, device="cpu")
+    with torch.inference_mode():
+        close(gpu.forward(gpu.params, _to(batch, cuda_device)),
+              cpu.forward(cpu.params, batch))
+        if cfg.family == "audio":
+            return
+        c_cpu, c_gpu = cpu.init_cache(2, 24), gpu.init_cache(2, 24)
+        toks = batch["tokens"]
+        for pos in range(toks.shape[1]):
+            want, c_cpu = cpu.decode_step(cpu.params, c_cpu, toks[:, pos:pos + 1], pos)
+            got, c_gpu = gpu.decode_step(gpu.params, c_gpu,
+                                         toks[:, pos:pos + 1].to(cuda_device), pos)
+            close(got, want)

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and running a small
-compress/decode on the CPU, and serving a field through
-``repro_torch.ArchiveServer``, loads neither JAX nor any module of
+compress/decode on the CPU, serving a field through
+``repro_torch.ArchiveServer``, and serving the reduced qwen3-4b LM through
+``repro_torch.launch.serve``, loads neither JAX nor any module of
 ``repro``."""
 import os
 import subprocess
@@ -22,6 +23,13 @@ for name, x in f.items():
 import repro_torch.serve
 with repro_torch.ArchiveServer(arc, max_bytes=1 << 30, device="cpu") as srv:
     assert srv.decode("w").tobytes() == dec["w"].tobytes()
+import types
+import repro_torch.configs
+import repro_torch.models.model
+import repro_torch.launch.serve
+report = repro_torch.launch.serve.serve(types.SimpleNamespace(
+    arch="qwen3-4b", batch=2, prompt_len=8, gen=4, seed=0, device="cpu"))
+assert report["generated"] == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
