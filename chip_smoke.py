@@ -25,7 +25,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    canary and on a full field; ``lorenzo3d_fwd`` and ``lorenzo3d_inv`` byte
    for byte on the stacked float64 group of the snapshot's three fields
    (each with its own bound) and on the reference's probe canaries, the
-   inverse allocating no full-size scratch;
+   inverse allocating no full-size scratch; the inverse on rows wider than
+   its band holds (WIDE_INV_SHAPES, the striped route) byte for byte;
 4. the main path at the paper's Hurricane-ISABEL size (three fields of
    100×500×500 float32, synthetic, from a seed): ``NeurLZ(device="cuda")
    .compress`` at rel_eb 1e-3 in strict mode, ``save``, ``Archive.open``,
@@ -95,11 +96,25 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     read once); one full-width float32 MoE layer of granite on the card
     and the CPU, its routing (experts, slots, kept tokens) equal and its
     output within MOE_TOL;
-11. a ``zfplike`` conventional round trip on one full field;
-12. the launch count of every kernel over each path, counted from 0 just
+11. the train path, the LM substrate's training: (a) qwen3-4b at full
+    width in its bfloat16 (4.02 B parameters), TRAIN_STEPS steps of
+    ``make_train_step`` (full remat, ``warmup_cosine(3e-3, 1, 8)``) on the
+    ``TokenStream`` at batch 8 x 128 under a ``StepWatchdog``: every loss
+    and gradient norm finite, the last loss below the first; the step's
+    wall time, its device time and kernels from a trace of
+    TRAIN_TRACE_STEPS more steps, against its bound; (b) one step of the
+    reduced qwen3-4b and granite-moe on card and CPU (loss, gradients,
+    update) and ``microbatch=2`` against one step; (c) the restart drills
+    of ``launch.train.train`` on the card: a failure at step 3 resumed by
+    ``run_with_restarts`` equal byte for byte to an uninterrupted run, the
+    same with NeurLZ-compressed weights, and lossy checkpoints through the
+    Lorenzo kernels (bound held, card restore equal to the CPU's, one
+    launch per lossy leaf) and ``neurlz_grad_archive`` equal on both;
+12. a ``zfplike`` conventional round trip on one full field;
+13. the launch count of every kernel over each path, counted from 0 just
     before the path: each kernel of a path must have launched in it (the
-    lm path launches none); and each path's
-    ``torch.cuda.max_memory_allocated``, reset before it.
+    lm path launches none, the train path the Lorenzo kernels); and each
+    path's ``torch.cuda.max_memory_allocated``, reset before it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
 summed from a torch.profiler trace that must hold every launch of the
@@ -748,6 +763,12 @@ def _probe_groups():
             ("planar_odd", c, [1e-3, 5e-2, 0.3])]
 
 
+# Rows wider than lorenzo3d_inv's band holds (56,320 int32 values): a
+# lossy checkpoint's untied head ([4096, 151,936] in qwen3-8b), a flattened
+# float32 expert stack, and a 3-D group.
+WIDE_INV_SHAPES = [(1, 4096, 151936), (1, 32, 1048576), (2, 3, 5, 100000)]
+
+
 def lorenzo_phase(dev, fields, report: dict) -> dict:
     """Both Lorenzo kernels against their plain versions, byte for byte, on
     the canaries and on the stacked float64 group of the snapshot's fields
@@ -800,6 +821,30 @@ def lorenzo_phase(dev, fields, report: dict) -> dict:
                              f"not below half of delta's {delta.numel() * 4}")
     checks.append({"group": "snapshot", "inverse_scratch_bytes": scratch,
                    "delta_bytes": delta.numel() * 4})
+    # Rows wider than a band's shared memory take the striped route (five
+    # launches a call), byte for byte against the plain version; the
+    # first shape timed.
+    gen = torch.Generator(device=dev).manual_seed(7)
+    wide = []
+    for shape in WIDE_INV_SHAPES:
+        d = torch.randint(-2 ** 30, 2 ** 30, shape, dtype=torch.int32,
+                          device=dev, generator=gen)
+        e = torch.rand((shape[0],), dtype=torch.float64, device=dev,
+                       generator=gen) * 0.5 + 1e-3
+        if not _bits_equal(lz.lorenzo3d_inv(d, e), lz.lorenzo_decode_plain(d, e)):
+            raise AssertionError(f"lorenzo3d_inv differs from plain at {shape}")
+        case = {"shape": list(shape), "identical": True}
+        if not wide:
+            case["ms"] = device_ms(lambda: lz.lorenzo3d_inv(d, e),
+                                   kernel="lorenzo3d_inv", per_call=5,
+                                   name="lorenzo3d_inv striped")
+            case["bound_ms"], _ = bound(d.numel() * 12 + 8 * shape[0],
+                                        4 * d.numel(), FP64_FLOPS)
+        wide.append(case)
+        del d
+        torch.cuda.empty_cache()
+    print("lorenzo3d_inv wide rows", json.dumps(wide))
+    checks.append({"group": "wide rows (striped route)", "cases": wide})
     report["lorenzo3d_checks"] = checks
     n, nf = x.numel(), x.shape[0]
     where = f"one call over the stacked {list(x.shape)} float64 group"
@@ -2032,6 +2077,363 @@ def lm_path(dev, report: dict) -> dict:
     return launches
 
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 8   # the reference driver's
+#   default batch and sequence; 8 steps, as train() would run them
+TRAIN_TRACE_STEPS = 4     # traced after the 8 (short traces lose activity)
+BF16_FLOPS = 989e12       # H100 SXM, bf16 dense on the tensor cores
+TRAIN_LOSS_TOL = 1e-5     # card vs CPU, float32 with TF32 off: relative
+TRAIN_GRAD_TOL = 1e-4     # |Δ| <= TRAIN_GRAD_TOL * max|CPU leaf|
+TRAIN_LOSSY_EB = 1e-5     # the lossy drill's weight bound (relative)
+
+
+def train_step_flops(cfg, batch: int, seq: int) -> float:
+    """Matmul operations of one step under full remat: the layers' forward
+    twice (the run and its recomputation), the head's forward twice (each
+    loss chunk recomputed), and the backward's two products per forward
+    product: 4 forwards.  A forward: 2 per matmul parameter per token,
+    the attention's two [S, S] products per layer (the port computes the
+    full square), and the head over the S - 1 predicted positions."""
+    hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    d, f = cfg.d_model, cfg.d_ff
+    per_layer = d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f
+    tokens = batch * seq
+    fwd = (2 * tokens * per_layer * cfg.n_layers
+           + 4 * batch * h * seq * seq * hd * cfg.n_layers
+           + 2 * batch * (seq - 1) * d * cfg.vocab_size)
+    return 4.0 * fwd
+
+
+def _train_full_width(dev, check) -> dict:
+    """(a) qwen3-4b at full width in its bfloat16: TRAIN_STEPS steps of
+    ``make_train_step(remat_policy="nothing", lr_fn=warmup_cosine(3e-3, 1,
+    8))`` on the ``TokenStream`` at TRAIN_BATCH x TRAIN_SEQ under a
+    ``StepWatchdog``, as ``launch.train.train``'s loop runs them (no
+    checkpoint: the final save would move 40 GB through the host codec);
+    then TRAIN_TRACE_STEPS more steps traced."""
+    import math
+    import statistics
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import StepWatchdog
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.optim import warmup_cosine
+
+    cfg = configs.get_config("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.build_model(cfg, model_axis=1)
+    params, opt = M.init_train_state(model, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_fn = M.make_train_step(model, remat_policy="nothing",
+                                lr_fn=warmup_cosine(3e-3, 1, TRAIN_STEPS))
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    watchdog = StepWatchdog(120.0)
+    losses, norms, lrs, walls = [], [], [], []
+
+    def run(step):
+        nonlocal params, opt
+        batch = {"tokens": torch.from_numpy(stream.next_batch()).to(dev)}
+        params, opt, met = step_fn(params, opt, batch, step)
+        return met
+
+    for step in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        with watchdog.step(step):
+            met = run(step)
+            losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        norms.append(float(met["grad_norm"]))
+        lrs.append(float(met["lr"]))
+        print(f"train full width: step {step} loss {losses[-1]:.4f} "
+              f"grad norm {norms[-1]:.4f} lr {lrs[-1]:.3e} "
+              f"{walls[-1] * 1e3:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+
+    def traced_steps():
+        for i in range(TRAIN_TRACE_STEPS):
+            run(TRAIN_STEPS + i)
+    events = device_events(traced(traced_steps))
+    check(bool(events), "the train step's trace held no device activity")
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / TRAIN_TRACE_STEPS
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    step_ms = statistics.median(walls[1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # The optimizer's least traffic: the gradient read twice (the clip's
+    # norm, the update), both moments and the parameter read and written.
+    adam_bytes = sum(p.numel() * (2 * p.element_size() + 8 + 8 + 2 * p.element_size())
+                     for p in model.parameters())
+    bound_ms = (flops / BF16_FLOPS + adam_bytes / HBM_BYTES_PER_S) * 1e3
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "n_params": n_params,
+           "param_bytes": param_bytes, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "init_s": init_s, "losses": losses,
+           "grad_norms": norms, "lrs": lrs, "step_wall_ms": [w * 1e3 for w in walls],
+           "step_ms_median_2_8": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "flops_per_step": flops, "optimizer_bytes_per_step": adam_bytes,
+           "bound_ms": bound_ms, "bound_matmul_ms": flops / BF16_FLOPS * 1e3,
+           "bound_optimizer_ms": adam_bytes / HBM_BYTES_PER_S * 1e3,
+           "x_bound": step_ms / bound_ms,
+           "device_ms_per_step": busy,
+           "device_kernels_per_step": len(events) / TRAIN_TRACE_STEPS,
+           "device_busy_share": busy / step_ms,
+           "top_kernels_ms_per_step": [[k[:90], v / 1e3 / TRAIN_TRACE_STEPS]
+                                       for k, v in top],
+           "watchdog": watchdog.stats(), "max_memory_allocated": peak}
+    check(all(math.isfinite(v) for v in losses), f"a loss is not finite: {losses}")
+    check(all(math.isfinite(v) for v in norms),
+          f"a gradient is not finite (global norms {norms})")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    del model, params, opt, step_fn
+    _lm_free()
+    return out
+
+
+def update_err(new, ref, grads, lr: float) -> float:
+    """The largest gap between two updated parameter trees' leaves, in
+    units of ``lr``, over the entries whose reference gradient is at least
+    1e-5 of its leaf's largest: where |g| is at its rounding noise, one
+    Adam step m̂ / (√v̂ + ε) ≈ sign(g) may flip, which is the same update
+    of another rounding, not a fault."""
+    worst = 0.0
+    for a, b, g in zip(new, ref, grads):
+        g = g.detach().cpu().float().abs()
+        keep = g >= 1e-5 * float(g.max())
+        d = (a.detach().cpu().float() - b.detach().cpu().float()).abs()[keep]
+        worst = max(worst, float(d.max()) / lr if d.numel() else 0.0)
+    return worst
+
+
+def _train_parity(dev, check) -> dict:
+    """(b) One train step of the reduced qwen3-4b and granite-moe (float32)
+    from the same parameters and batch on the card and the CPU: loss,
+    gradients and updated parameters (``update_err`` within a hundredth of
+    a step); and for qwen3-4b ``microbatch=2`` against one step over the
+    whole batch on the card (granite's aux loss is taken per microbatch,
+    as in the JAX package, so its loss is another function there)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    def to(tree, d):   # a copy: the step updates its parameters in place
+        return {k: to(v, d) if isinstance(v, dict) else v.detach().to(d, copy=True)
+                for k, v in tree.items()}
+
+    def rel(a, b):
+        return float((a.detach().cpu().float() - b.detach().cpu().float()).abs().max()
+                     / (b.detach().float().abs().max() + 1e-30))
+
+    lr = 1e-3
+    out = {}
+    for arch in ("qwen3-4b", "granite-moe-3b-a800m"):
+        cfg = configs.get_reduced(arch)
+        init = M.init_params(M.build_model(cfg, model_axis=1), seed=0, device="cpu")
+        batch = M.demo_batch(cfg, 4, 32, seed=1, device="cpu")
+        runs = {}
+        plan = [("cpu", "cpu", 1), ("card", dev, 1)]
+        if cfg.family != "moe":
+            plan.append(("card_mb2", dev, 2))
+        for where, d, mb in plan:
+            m = M.build_model(cfg, model_axis=1)
+            params = m.load_params(to(init, d))
+            b = to(batch, d)
+            leaves = tree_leaves(params)
+            grads = torch.autograd.grad(m.loss(params, b), leaves)
+            opt = adamw_init(params)
+            params, opt, met = M.make_train_step(m, lr=lr, microbatch=mb)(
+                params, opt, b, 0)
+            runs[where] = (float(met["loss"]), grads, tree_leaves(params))
+        (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs["card"]
+        r = {"loss_cpu": lc, "loss_card": lg, "loss_rel_err": abs(lg - lc) / abs(lc),
+             "grad_err_rel_to_leaf_max": max(rel(a, b) for a, b in zip(gg, gc)),
+             "update_err_in_lr": update_err(pg, pc, gc, lr)}
+        check(r["loss_rel_err"] <= TRAIN_LOSS_TOL, f"{arch}: card loss {r}")
+        check(r["grad_err_rel_to_leaf_max"] <= TRAIN_GRAD_TOL,
+              f"{arch}: card gradients {r}")
+        check(r["update_err_in_lr"] <= 1e-2, f"{arch}: card update {r}")
+        if "card_mb2" in runs:
+            lm, _, pm = runs["card_mb2"]
+            r.update({"loss_card_microbatch2": lm,
+                      "microbatch2_loss_rel_err": abs(lm - lg) / abs(lg),
+                      "microbatch2_update_err_in_lr": update_err(pm, pg, gg, lr)})
+            check(r["microbatch2_loss_rel_err"] <= TRAIN_LOSS_TOL
+                  and r["microbatch2_update_err_in_lr"] <= 1e-2,
+                  f"{arch}: microbatch=2 {r}")
+        out[arch] = r
+    return out
+
+
+def _train_drills(dev, check) -> dict:
+    """(c) ``launch.train.train`` end to end on the card, reduced qwen3-4b,
+    6 steps, a checkpoint every 2: a failure at step 3 resumed by
+    ``run_with_restarts`` must end equal, byte for byte, to an
+    uninterrupted run (same device, deterministic algorithms); the same
+    drill with NeurLZ-compressed weights (TRAIN_LOSSY_EB) must resume and
+    finish; the uninterrupted run's final weights saved lossy on the card
+    restore within eb · range (1-D leaves exact), equal byte for byte to
+    the same checkpoint restored on the CPU, each lossy leaf one
+    ``lorenzo3d_fwd`` and one ``lorenzo3d_inv`` launch; and
+    ``neurlz_grad_archive`` of one step's gradients equal on card and CPU."""
+    import types
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager, run_with_restarts
+    from repro_torch.core import archive as arc_io
+    from repro_torch.kernels import lorenzo3d as lz
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import neurlz_grad_archive
+    from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
+
+    root = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    if root.exists():
+        import shutil
+        shutil.rmtree(root)
+
+    def args(name, fail=None, lossy=None):
+        return types.SimpleNamespace(
+            arch="qwen3-4b", preset="reduced", steps=6, batch=8, seq=64,
+            lr=3e-3, seed=0, microbatch=1, ckpt_dir=str(root / name),
+            ckpt_every=2, keep=3, resume=True, lossy_ckpt_eb=lossy,
+            fail_at_step=fail, step_deadline=120.0, log_every=0, device=str(dev))
+
+    def drill(name, lossy=None):
+        attempts = []
+
+        def make():
+            attempts.append(1)
+            return train_lib.train(args(name, 3 if len(attempts) == 1 else None,
+                                        lossy))
+        rep = run_with_restarts(make)
+        check(len(attempts) == 2 and rep["resumed_from"] == 2,
+              f"{name}: {len(attempts)} attempts, resumed from {rep['resumed_from']}")
+        return rep
+
+    out = {}
+    t0 = time.perf_counter()
+    whole = train_lib.train(args("whole"))
+    resumed = drill("resumed")
+    same = {n: (root / "whole" / "step_6" / n).read_bytes()
+            == (root / "resumed" / "step_6" / n).read_bytes()
+            for n in ("params.bin", "opt.bin")}
+    out["lossless"] = {"whole": whole, "resumed": resumed, "bit_equal": same,
+                       "seconds": time.perf_counter() - t0}
+    check(all(same.values()), f"lossless restart differs from the whole run: {same}")
+    check(whole["last_loss"] < whole["first_loss"], f"loss did not fall: {whole}")
+
+    t0 = time.perf_counter()
+    lossy = drill("lossy", TRAIN_LOSSY_EB)
+    check(lossy["last_loss"] == lossy["last_loss"], "lossy drill: NaN loss")
+
+    # The uninterrupted run's final weights, saved lossy on the card.
+    cfg = configs.get_reduced("qwen3-4b")
+    model = M.build_model(cfg, model_axis=1)
+    template = M.init_params(model, seed=0, device=dev)
+    exact, _, _ = CheckpointManager(str(root / "whole"), device=dev).restore(6, template)
+    n_lossy = sum(1 for p in tree_leaves(exact) if p.ndim >= 2)
+    shapes = sorted({tuple(p.shape) for p in tree_leaves(exact) if p.ndim >= 2})
+    mgr = CheckpointManager(str(root / "lossy_final"), lossy_weights_eb=TRAIN_LOSSY_EB,
+                            device=dev)
+    f0, i0 = lz.fwd_launches, lz.inv_launches
+    mgr.save(6, exact)
+    f1 = lz.fwd_launches
+    on_card, _, _ = mgr.restore(6, template)
+    i1 = lz.inv_launches
+    on_cpu, _, _ = CheckpointManager(str(root / "lossy_final"), device="cpu").restore(
+        6, template)
+    worst, equal = 0.0, True
+    for a, b, c in zip(tree_leaves(exact), tree_leaves(on_card), tree_leaves(on_cpu)):
+        equal &= bool(torch.equal(b.cpu().view(torch.int32), c.view(torch.int32)))
+        if a.ndim >= 2:
+            lim = TRAIN_LOSSY_EB * float(a.max() - a.min())
+            err = float((b - a).abs().max())
+            worst = max(worst, err / lim if lim > 0 else err)
+            check(err <= lim, f"lossy weight {tuple(a.shape)}: {err} > {lim}")
+        else:
+            check(torch.equal(a, b), f"1-D weight {tuple(a.shape)} changed")
+    out["lossy"] = {"resumed": lossy, "lossy_leaves": n_lossy,
+                    "lossy_shapes": [list(s) for s in shapes],
+                    "fwd_launches": f1 - f0, "inv_launches": i1 - i0,
+                    "worst_err_over_bound": worst, "card_equals_cpu": equal,
+                    "params_bin_bytes": (root / "lossy_final" / "step_6"
+                                         / "params.bin").stat().st_size,
+                    "raw_params_bin_bytes": (root / "whole" / "step_6"
+                                             / "params.bin").stat().st_size,
+                    "seconds": time.perf_counter() - t0}
+    check(equal, "the lossy checkpoint restores differently on card and CPU")
+    # Each lossy leaf, the [2, 64] norms (H = 2, W = 64) among them, takes
+    # the kernel route: one forward launch to save, one inverse to restore.
+    check((2, 64) in shapes and f1 - f0 == n_lossy and i1 - i0 == n_lossy,
+          f"lossy leaves {n_lossy} ({shapes}), launches fwd {f1 - f0} inv {i1 - i0}")
+
+    # One step's gradients through neurlz_grad_archive on card and CPU.
+    batch = M.demo_batch(cfg, 8, 64, seed=2, device=dev)
+    params = model.load_params(exact)
+    grads = torch.autograd.grad(model.loss(params, batch), tree_leaves(params))
+    gtree = tree_unflatten(params, grads)
+    card = neurlz_grad_archive(gtree, rel_eb=1e-3, device=dev)
+    cpu = neurlz_grad_archive(tree_map(lambda g: g.cpu(), gtree), rel_eb=1e-3,
+                              device="cpu")
+    same_arcs = (sorted(card["arcs"]) == sorted(cpu["arcs"]) and all(
+        arc_io.dumps(card["arcs"][k]) == arc_io.dumps(cpu["arcs"][k])
+        for k in cpu["arcs"]))
+    out["grad_archive"] = {"leaves": len(card["arcs"]), "raw_bytes": card["raw_bytes"],
+                           "comp_bytes": card["comp_bytes"], "ratio": card["ratio"],
+                           "card_equals_cpu": same_arcs}
+    check(same_arcs, "neurlz_grad_archive differs on card and CPU")
+    del model, params, exact, on_card
+    _lm_free()
+    return out
+
+
+def train_path(dev, report: dict) -> dict:
+    """The LM substrate's training path: (a) qwen3-4b at full width,
+    (b) the reduced presets on card and CPU, (c) the restart drills and
+    lossy checkpoints (``_train_full_width``, ``_train_parity``,
+    ``_train_drills``).  Its kernels: ``lorenzo3d_fwd`` / ``lorenzo3d_inv``
+    of the lossy checkpoints and the gradient archive."""
+    from repro_torch import kernels
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"train path: {what}")
+
+    t_path = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = {"full_width": _train_full_width(dev, check),
+           "parity": _train_parity(dev, check),
+           "drills": _train_drills(dev, check)}
+    launches = kernels.launch_counts()
+    out["launches"] = launches
+    out["device_peak_bytes"] = out["full_width"]["max_memory_allocated"]
+    out["seconds"] = time.perf_counter() - t_path
+    r = out["full_width"]
+    print(f"train qwen3-4b bf16 full width: {r['n_params']:,} params, step "
+          f"{r['step_ms_median_2_8']:.2f} ms (median of steps 2-8; "
+          f"{r['tokens_per_s']:.1f} tok/s; bound {r['bound_ms']:.2f} ms, "
+          f"x{r['x_bound']:.2f}; device {r['device_ms_per_step']:.2f} ms/step, "
+          f"{r['device_kernels_per_step']:.1f} kernels/step), loss "
+          f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, grad norms "
+          f"{[round(v, 4) for v in r['grad_norms']]}, max_memory_allocated "
+          f"{r['max_memory_allocated']:,}")
+    print("train_path", json.dumps(out))
+    report["train_path"] = out
+    return launches
+
+
 def zfplike_round_trip(dev, x, report: dict) -> None:
     """The ``zfplike`` conventional stage on one full field: the bound
     holds and decode equals the encoder's reconstruction."""
@@ -2127,6 +2529,8 @@ def main() -> int:
     by_path["serve"] = serve_path(dev, min(args.epochs, SERVE_EPOCHS),
                                   main_kept, lorenzo_kept, container, report)
     by_path["lm"] = lm_path(dev, report)
+    _lm_free()
+    by_path["train"] = train_path(dev, report)
     single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
     path_kernels = {"main": single,
                     "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),
@@ -2135,7 +2539,9 @@ def main() -> int:
                                 "conv2d3x3_grouped_bwd", "fused_enhance"),
                     "streaming": single,
                     "serve": single + ("lorenzo3d_inv",),
-                    "lm": ()}   # the LM has no Pallas kernel, so none here
+                    "lm": (),   # the LM has no Pallas kernel, so none here
+                    # the lossy checkpoints' and the gradient archive's
+                    "train": ("lorenzo3d_fwd", "lorenzo3d_inv")}
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")

@@ -51,3 +51,12 @@ def decompress(payload: bytes, codec: str = "zstd") -> bytes:
     if codec == "zstd":
         return _zstd.ZstdDecompressor().decompress(payload)
     return zlib.decompress(payload)
+
+
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+
+
+def decompress_sniffed(payload: bytes) -> bytes:
+    """Decode a headerless stream (a checkpoint file) by sniffing the zstd
+    frame magic, which a zlib stream never starts with."""
+    return decompress(payload, "zstd" if payload[:4] == _ZSTD_MAGIC else "zlib")

@@ -59,6 +59,21 @@
 // delta is read twice and rec written once, plus the carry rows (1/bh of
 // delta, written once and read once).  Integer sums wrap (unsigned
 // arithmetic), which is exact for every archive the encoder writes.
+//
+// Striped inverse, for rows wider than a band's state holds (W > 56,320
+// points, where not even one row fits in shared memory): the row is cut
+// into stripes of kStripe points and each (field, band, stripe) block runs
+// the band pass above over its stripe alone.  The 3-D prefix sum is
+// separable, so a stripe needs one more value per (f, z, y): the sum of
+// every point left of the stripe in the rows and planes up to (z, y),
+//   P[f][z][y][s] = sum over z' <= z, y' <= y, x < s * kStripe of delta,
+// which the band pass adds to each point of row y at plane z.  P comes
+// from three small passes over F * D * H * nS values (1 / kStripe of the
+// group): the stripes' row-segment sums (seg), their exclusive scan over
+// the stripes of a row (segscan), then the inclusive prefix over y and z
+// (prefix: one block per (field, stripe) scans y plane by plane and adds
+// the plane before).  Traffic: delta read three times, rec written once.
+// Rows that fit keep the route above, unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +89,9 @@ constexpr int kBandThreads = 512;
 constexpr int kBandWarps = kBandThreads / 32;
 constexpr int kBandRows = 8;                    // the most rows a band holds
 constexpr int kStateBytes = 220 * 1024;         // shared memory for a band's state
+constexpr int kStripe = 4 * kBandThreads;       // points of a stripe (striped route)
+constexpr int kSegThreads = 256;
+constexpr int kPrefixThreads = 256;
 
 template <bool kF32>
 __device__ __forceinline__ double cast_back(double v) {
@@ -193,36 +211,45 @@ lorenzo3d_inv_carry_kernel(const int* __restrict__ delta, int H, int W, int bh,
   }
 }
 
-// Pass 2 of the inverse: block (f, b) walks z over the band's rows.
+// Pass 2 of the inverse: block (f, b) walks z over the band's rows.  On the
+// striped route (kStriped) block (f, b, s) walks stripe s of them, columns
+// x0 .. x0 + Ws of rows W wide, and adds the stripe's left prefix
+// P[f][z][y][s] to each point.
+template <bool kStriped>
 __global__ void __launch_bounds__(kBandThreads)
 lorenzo3d_inv_band_kernel(const int* __restrict__ delta,
                           const unsigned* __restrict__ carry,
+                          const unsigned* __restrict__ left,
                           const double* __restrict__ eb, int D, int H, int W,
-                          int bh, int nb, double* __restrict__ rec) {
-  extern __shared__ unsigned state[];   // [bh][W]: sums over z of the column prefix
+                          int bh, int nb, int ns, double* __restrict__ rec) {
+  extern __shared__ unsigned state[];   // [bh][Ws]: sums over z of the column prefix
   __shared__ unsigned wtot[2][kBandRows][kBandWarps];   // warp totals of a row chunk
   __shared__ uint4 wpre[2][kBandWarps][kBandRows / 4];  // their exclusive scan
   __shared__ unsigned ctot[2][kBandRows];               // a row chunk's total
   const int f = blockIdx.x / nb, b = blockIdx.x - f * nb;
+  const int sx = kStriped ? (int)blockIdx.y : 0;
+  const int x0 = kStriped ? sx * kStripe : 0;
+  const int Ws = kStriped ? (W - x0 < kStripe ? W - x0 : kStripe) : W;
   const int y0 = b * bh;
   const int rows = H - y0 < bh ? H - y0 : bh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const double step = __dmul_rn(2.0, eb[f]);
   const long long plane = (long long)H * W;
-  const int* dband = delta + (long long)f * D * plane + (long long)y0 * W;
-  const unsigned* cband = carry + ((long long)f * D * nb + b) * W;
-  double* rband = rec + (long long)f * D * plane + (long long)y0 * W;
-  for (int i = tid; i < rows * W; i += kBandThreads) state[i] = 0u;
+  const int* dband = delta + (long long)f * D * plane + (long long)y0 * W + x0;
+  const unsigned* cband = carry + ((long long)f * D * nb + b) * W + x0;
+  const unsigned* lband = kStriped ? left + ((long long)f * D * H + y0) * ns + sx : nullptr;
+  double* rband = rec + (long long)f * D * plane + (long long)y0 * W + x0;
+  for (int i = tid; i < rows * Ws; i += kBandThreads) state[i] = 0u;
   __syncthreads();
 
-  const int chunks = (W + kBandThreads - 1) / kBandThreads;
+  const int chunks = (Ws + kBandThreads - 1) / kBandThreads;
   const int steps = D * chunks;
   // The loads of step k: the band's rows of delta and the carry row at
   // plane z, columns of chunk ch.
   unsigned dn[kBandRows], cn = 0u;
   auto load = [&](int k) {
     const int z = k / chunks, x = (k - z * chunks) * kBandThreads + tid;
-    if (x >= W) return;
+    if (x >= Ws) return;
     const int* dp = dband + (long long)z * plane + x;
 #pragma unroll
     for (int i = 0; i < kBandRows; ++i)
@@ -230,7 +257,9 @@ lorenzo3d_inv_band_kernel(const int* __restrict__ delta,
     cn = __ldg(cband + (long long)z * nb * W + x);
   };
   load(0);
-  unsigned off[kBandRows];   // sums of the row's earlier chunks
+  // Sums of the row's earlier chunks; striped, they start at the stripe's
+  // left prefix.
+  unsigned off[kBandRows];
   for (int k = 0; k < steps; ++k) {
     const int z = k / chunks, ch = k - z * chunks;
     const int x = ch * kBandThreads + tid;
@@ -242,7 +271,10 @@ lorenzo3d_inv_band_kernel(const int* __restrict__ delta,
     if (k + 1 < steps) load(k + 1);
     if (ch == 0) {
 #pragma unroll
-      for (int i = 0; i < kBandRows; ++i) off[i] = 0u;
+      for (int i = 0; i < kBandRows; ++i) {
+        off[i] = 0u;
+        if (kStriped && i < rows) off[i] = __ldg(lband + ((long long)z * H + i) * ns);
+      }
     }
     // Down the column (the carry holds the rows above the band), into the
     // running sums over z, then the inclusive scan along x within the warp.
@@ -250,10 +282,10 @@ lorenzo3d_inv_band_kernel(const int* __restrict__ delta,
 #pragma unroll
     for (int i = 0; i < kBandRows; ++i) {
       v[i] = 0u;
-      if (i < rows && x < W) {
+      if (i < rows && x < Ws) {
         u += d[i];
-        v[i] = state[i * W + x] + u;
-        state[i * W + x] = v[i];
+        v[i] = state[i * Ws + x] + u;
+        state[i * Ws + x] = v[i];
       }
 #pragma unroll
       for (int s = 1; s < 32; s <<= 1) {
@@ -286,9 +318,90 @@ lorenzo3d_inv_band_kernel(const int* __restrict__ delta,
       if (i >= rows) break;
       const unsigned q = v[i] + pre[i] + off[i];
       off[i] += ctot[par][i];
-      if (x < W)
+      if (x < Ws)
         rband[(long long)z * plane + (long long)i * W + x] =
             __dmul_rn((double)(int)q, step);
+    }
+  }
+}
+
+// Striped route, pass a: seg[r][s] = the sum of row r's points in stripe
+// s, one block per (row, stripe), r = (f * D + z) * H + y.
+__global__ void __launch_bounds__(kSegThreads)
+lorenzo3d_inv_seg_kernel(const int* __restrict__ delta, int W, int ns,
+                         unsigned* __restrict__ seg) {
+  __shared__ unsigned wsum[kSegThreads / 32];
+  const long long r = blockIdx.x / ns;
+  const int s = (int)(blockIdx.x - r * ns);
+  const int x0 = s * kStripe;
+  const int x1 = W - x0 < kStripe ? W : x0 + kStripe;
+  const int* row = delta + r * W;
+  unsigned acc = 0u;
+  for (int x = x0 + threadIdx.x; x < x1; x += kSegThreads)
+    acc += (unsigned)__ldg(row + x);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned t = 0u;
+#pragma unroll
+    for (int w = 0; w < kSegThreads / 32; ++w) t += wsum[w];
+    seg[r * ns + s] = t;
+  }
+}
+
+// Striped route, pass b: each row's segment sums become their exclusive
+// scan over the row's stripes, one thread per row.
+__global__ void __launch_bounds__(kPrefixThreads)
+lorenzo3d_inv_segscan_kernel(long long rows, int ns, unsigned* __restrict__ seg) {
+  const long long r = (long long)blockIdx.x * kPrefixThreads + threadIdx.x;
+  if (r >= rows) return;
+  unsigned* p = seg + r * ns;
+  unsigned run = 0u;
+  for (int s = 0; s < ns; ++s) {
+    const unsigned v = p[s];
+    p[s] = run;
+    run += v;
+  }
+}
+
+// Striped route, pass c: the inclusive prefix over y, then over z, of the
+// exclusive stripe sums, in place.  Block (f, s) scans y for each plane z in
+// chunks of kPrefixThreads rows and adds plane z - 1's result at the same
+// y, which the same thread wrote.
+__global__ void __launch_bounds__(kPrefixThreads)
+lorenzo3d_inv_prefix_kernel(int D, int H, int ns, unsigned* __restrict__ seg) {
+  __shared__ unsigned wtot[kPrefixThreads / 32];
+  const int f = blockIdx.x / ns, s = blockIdx.x - f * ns;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned* col = seg + (long long)f * D * H * ns + s;
+  for (int z = 0; z < D; ++z) {
+    unsigned run = 0u;   // the sum of this plane's earlier chunks
+    for (int y0 = 0; y0 < H; y0 += kPrefixThreads) {
+      const int y = y0 + tid;
+      const long long o = ((long long)z * H + y) * ns;
+      unsigned v = y < H ? col[o] : 0u;
+#pragma unroll
+      for (int k = 1; k < 32; k <<= 1) {
+        const unsigned t = __shfl_up_sync(0xffffffffu, v, k);
+        if (lane >= k) v += t;
+      }
+      if (lane == 31) wtot[warp] = v;
+      __syncthreads();
+      unsigned before = 0u, total = 0u;
+#pragma unroll
+      for (int w = 0; w < kPrefixThreads / 32; ++w) {
+        before += w < warp ? wtot[w] : 0u;
+        total += wtot[w];
+      }
+      __syncthreads();   // wtot is written again by the next chunk
+      if (y < H) {
+        unsigned q = v + before + run;
+        if (z > 0) q += col[o - (long long)H * ns];
+        col[o] = q;
+      }
+      run += total;
     }
   }
 }
@@ -312,6 +425,8 @@ extern "C" int lorenzo3d_fwd(const void* x, const void* eb, int F, int D, int H,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)F * D * H * W == 0) return 0;
+  // Tiles of kTY rows along grid.y, fields along grid.z.
+  if ((H + kTY - 1) / kTY > 65535 || F > 65535) return (int)cudaErrorInvalidConfiguration;
   auto s = static_cast<cudaStream_t>(stream);
   if (out_f32) launch_fwd<true>(x, eb, F, D, H, W, delta, unpred, rec, s);
   else launch_fwd<false>(x, eb, F, D, H, W, delta, unpred, rec, s);
@@ -326,15 +441,26 @@ extern "C" int lorenzo3d_inv_band_rows(int W) {
   return rows < kBandRows ? (int)rows : kBandRows;
 }
 
-// carry holds F * D * ceil(H / bh) * W unsigned ints, bh from
-// lorenzo3d_inv_band_rows(W).
+// The stripe width of the striped route, for rows that
+// lorenzo3d_inv_band_rows refuses.
+extern "C" int lorenzo3d_inv_stripe() { return kStripe; }
+
+// carry holds F * D * ceil(H / bh) * W unsigned ints.  Rows that fit a band
+// take the band route: bh = lorenzo3d_inv_band_rows(W), ns = 1, left
+// unused.  Wider rows take the striped route: bh =
+// lorenzo3d_inv_band_rows(kStripe), ns = ceil(W / kStripe), and left holds
+// F * D * H * ns unsigned ints.
 extern "C" int lorenzo3d_inv(const void* delta, const void* eb, int F, int D,
-                             int H, int W, int bh, void* carry, void* rec,
-                             int device, void* stream) {
+                             int H, int W, int bh, int ns, void* carry,
+                             void* left, void* rec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)F * D * H * W == 0) return 0;
-  if (bh < 1 || bh > lorenzo3d_inv_band_rows(W)) return (int)cudaErrorInvalidValue;
+  const bool striped = ns > 1;
+  const int width = striped ? kStripe : W;
+  if (bh < 1 || bh > lorenzo3d_inv_band_rows(width)) return (int)cudaErrorInvalidValue;
+  if (ns != (striped ? (W + kStripe - 1) / kStripe : 1) || ns > 65535)
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int nb = (H + bh - 1) / bh;
   const int xblocks = (W + kCarryThreads - 1) / kCarryThreads;
@@ -343,16 +469,29 @@ extern "C" int lorenzo3d_inv(const void* delta, const void* eb, int F, int D,
       static_cast<unsigned*>(carry));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)bh * W * sizeof(unsigned);
+  if (striped) {
+    const long long rows = (long long)F * D * H;
+    unsigned* l = static_cast<unsigned*>(left);
+    lorenzo3d_inv_seg_kernel<<<(unsigned)(rows * ns), kSegThreads, 0, s>>>(
+        static_cast<const int*>(delta), W, ns, l);
+    lorenzo3d_inv_segscan_kernel<<<(unsigned)((rows + kPrefixThreads - 1) / kPrefixThreads),
+                                   kPrefixThreads, 0, s>>>(rows, ns, l);
+    lorenzo3d_inv_prefix_kernel<<<(unsigned)((long long)F * ns), kPrefixThreads, 0, s>>>(
+        D, H, ns, l);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t smem = (size_t)bh * width * sizeof(unsigned);
+  auto kernel = striped ? lorenzo3d_inv_band_kernel<true> : lorenzo3d_inv_band_kernel<false>;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lorenzo3d_inv_band_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  lorenzo3d_inv_band_kernel<<<(unsigned)((long long)F * nb), kBandThreads, smem, s>>>(
+  kernel<<<dim3((unsigned)((long long)F * nb), (unsigned)ns), kBandThreads, smem, s>>>(
       static_cast<const int*>(delta), static_cast<const unsigned*>(carry),
-      static_cast<const double*>(eb), D, H, W, bh, nb, static_cast<double*>(rec));
+      static_cast<const unsigned*>(left), static_cast<const double*>(eb), D, H, W,
+      bh, nb, ns, static_cast<double*>(rec));
   return (int)cudaGetLastError();
 }
 

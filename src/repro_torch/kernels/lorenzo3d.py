@@ -19,10 +19,14 @@ import torch
 from . import _build
 
 CODE_CAP = 1 << 15    # compressors.quantize.CODE_CAP (kernels import no compressor)
+GRID_YZ_MAX = 65535   # CUDA's limit on a launch grid's y and z
+FWD_TILE_ROWS = 8     # rows of the forward's tile (grid.y = ceil(H / 8))
 
 # Calls of :func:`lorenzo3d_fwd` / :func:`lorenzo3d_inv` that launched their
 # kernels (CUDA route only).  An inverse call is two launches: the carry
-# rows of each band, then the walk over z of each band.
+# rows of each band, then the walk over z of each band; five for rows wider
+# than a band's shared memory (the striped route: the stripes' left
+# prefixes take three more).
 fwd_launches = 0
 inv_launches = 0
 
@@ -121,11 +125,13 @@ def _load():
         lib.lorenzo3d_fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                                       + [ctypes.c_void_p])
-        lib.lorenzo3d_inv.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+        lib.lorenzo3d_inv.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                                      + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                                       + [ctypes.c_void_p])
         lib.lorenzo3d_inv_band_rows.argtypes = [ctypes.c_int]
         lib.lorenzo3d_inv_band_rows.restype = ctypes.c_int
+        lib.lorenzo3d_inv_stripe.argtypes = []
+        lib.lorenzo3d_inv_stripe.restype = ctypes.c_int
         for fn in (lib.lorenzo3d_fwd, lib.lorenzo3d_inv):
             fn.restype = ctypes.c_int
         lib.lorenzo3d_error_string.argtypes = [ctypes.c_int]
@@ -154,6 +160,10 @@ def lorenzo3d_fwd(x: torch.Tensor, eb, out_dtype: torch.dtype):
     eb = _bounds(eb, x)
     if not _cuda_ready(x, eb, name="lorenzo3d_fwd"):
         return lorenzo_encode_plain(x, eb, out_dtype)
+    if -(-h // FWD_TILE_ROWS) > GRID_YZ_MAX or f > GRID_YZ_MAX:
+        raise ValueError(f"lorenzo3d_fwd: a group of {f} fields of {h} rows "
+                         f"exceeds the launch grid (at most {GRID_YZ_MAX} "
+                         f"fields and {GRID_YZ_MAX * FWD_TILE_ROWS} rows)")
     delta = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     unpred = torch.empty(x.shape, dtype=torch.bool, device=x.device)
     rec = torch.empty_like(x)
@@ -187,15 +197,23 @@ def lorenzo3d_inv(delta: torch.Tensor, eb) -> torch.Tensor:
         return rec
     lib = _load()
     bh = lib.lorenzo3d_inv_band_rows(w)
+    ns = 1
     if bh < 1:
-        raise ValueError(f"lorenzo3d_inv: rows of {w} points are wider than "
-                         "shared memory holds")
+        # Rows wider than a band's shared memory: the striped route.
+        stripe = lib.lorenzo3d_inv_stripe()
+        bh, ns = lib.lorenzo3d_inv_band_rows(stripe), -(-w // stripe)
+        if ns > GRID_YZ_MAX:
+            raise ValueError(f"lorenzo3d_inv: rows of {w} points exceed the "
+                             f"launch grid ({GRID_YZ_MAX} stripes of {stripe})")
     # The sum of the rows above each band, per (field, plane, band): 1/bh of
-    # the group, not a full-size scratch.
+    # the group, not a full-size scratch; striped, the left prefix of each
+    # stripe, per (field, plane, row): 1/stripe of the group.
     carry = torch.empty((f, d, -(-h // bh), w), dtype=torch.int32,
                         device=delta.device)
-    err = lib.lorenzo3d_inv(delta.data_ptr(), eb.data_ptr(), f, d, h, w, bh,
-                            carry.data_ptr(), rec.data_ptr(),
+    left = torch.empty((f, d, h, ns) if ns > 1 else (0,), dtype=torch.int32,
+                       device=delta.device)
+    err = lib.lorenzo3d_inv(delta.data_ptr(), eb.data_ptr(), f, d, h, w, bh, ns,
+                            carry.data_ptr(), left.data_ptr(), rec.data_ptr(),
                             delta.device.index or 0,
                             torch.cuda.current_stream(delta.device).cuda_stream)
     _raise_on(err, lib, "lorenzo3d_inv")

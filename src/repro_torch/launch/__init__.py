@@ -1,2 +1,3 @@
 """Drivers of the LM substrate: ``serve`` (batched prefill + greedy
-decode).  Training is a later slice."""
+decode) and ``train`` (the training loop with checkpoints, resume, the
+straggler watchdog and failure injection)."""

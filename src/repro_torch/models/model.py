@@ -1,11 +1,13 @@
 """Model registry, demo inputs, step functions and parameters.
 
-``make_prefill_step`` / ``make_encode_step`` / ``make_decode_step`` are the
-serving functions (the decode step is the inner loop: one new token against
-the KV caches).  ``init_params`` draws a model's parameters on a device;
-``params_from_jax`` carries the JAX package's parameters across, and
+``make_train_step`` fuses loss, gradients and AdamW (parameters and
+moments updated in place); ``make_prefill_step`` / ``make_encode_step`` /
+``make_decode_step`` are the serving functions (the decode step is the
+inner loop: one new token against the KV caches).  ``init_params`` draws a
+model's parameters on a device, ``init_train_state`` adds the optimizer
+state; ``params_from_jax`` carries the JAX package's parameters across, and
 ``flatten_params`` gives a model's parameters under the JAX package's
-checkpoint keys.  The train step and the dry-run specs are later slices.
+checkpoint keys.  The dry-run specs are a later slice.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import torch
 
 from .. import device as device_lib
 from ..configs.base import ModelConfig
+from ..optim import adamw_init, adamw_update, global_norm
+from ..optim.adamw import tree_leaves, tree_unflatten
 from .transformer import Model
 
 
@@ -58,6 +62,66 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
 # step functions
 # ---------------------------------------------------------------------------
 
+def _grads(loss, leaves) -> list:
+    # A leaf the loss does not reach (hubert's embedding table) gets zeros,
+    # as under jax.grad.
+    return list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True))
+
+
+def make_train_step(model: Model, *, lr: float = 3e-4, grad_clip: float = 1.0,
+                    weight_decay: float = 0.1, remat_policy: str = "nothing",
+                    lr_fn=None, microbatch: int = 1):
+    """``(params, opt_state, batch, step) -> (params, opt_state, metrics)``,
+    the parameters and the optimizer's moments updated in place.
+    ``params`` are the model's registered parameters (``init_params``,
+    ``init_train_state`` or ``model.load_params``), which take gradients.
+
+    ``microbatch > 1`` splits the batch into that many consecutive slices
+    (the JAX package's reshape), takes each slice's gradients in turn,
+    accumulates them in float32 and divides, then casts to the parameters'
+    dtypes.  ``metrics`` holds ``loss`` (a float32 0-d tensor on the
+    device), ``lr`` (the step's rate) and ``grad_norm`` (the clip's global
+    norm before clipping, a 0-d tensor)."""
+
+    def train_step(params, opt_state, batch, step):
+        def loss_fn(b):
+            return model.loss(params, b, remat_policy=remat_policy)
+
+        leaves = tree_leaves(params)
+        if microbatch > 1:
+            n = next(iter(batch.values())).shape[0]
+            if n % microbatch:
+                raise ValueError(f"batch {n} does not split into {microbatch} "
+                                 "microbatches")
+            size = n // microbatch
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in leaves]
+            losses = []
+            for i in range(microbatch):
+                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                loss_i = loss_fn(mb)
+                for a, g in zip(acc, _grads(loss_i, leaves)):
+                    a.add_(g.float())
+                losses.append(loss_i.detach())
+            grads = [(a / microbatch).to(p.dtype) for a, p in zip(acc, leaves)]
+            del acc
+            loss = torch.stack(losses).mean()
+        else:
+            loss = loss_fn(batch)
+            grads = _grads(loss, leaves)
+            loss = loss.detach()
+        grads = tree_unflatten(params, grads)
+        cur_lr = lr_fn(step) if lr_fn is not None else lr
+        gnorm = global_norm(grads)
+        params, opt_state = adamw_update(
+            grads, opt_state, params, lr=cur_lr, weight_decay=weight_decay,
+            grad_clip_norm=grad_clip, gnorm=gnorm)
+        return params, opt_state, {"loss": loss, "lr": cur_lr, "grad_norm": gnorm}
+
+    return train_step
+
+
 def make_prefill_step(model: Model):
     """Forward only: last-position logits of the full prompt (serving
     prefill)."""
@@ -98,6 +162,13 @@ def init_params(model: Model, seed: int = 0, device=None) -> dict:
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return model.load_params(model.init(gen))
+
+
+def init_train_state(model: Model, seed: int = 0, device=None):
+    """``(params, opt_state)``: :func:`init_params` and zeroed AdamW
+    moments beside them."""
+    params = init_params(model, seed, device)
+    return params, adamw_init(params)
 
 
 def _to_tensor(a, dev) -> torch.Tensor:

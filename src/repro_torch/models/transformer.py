@@ -12,20 +12,58 @@ interchangeable between the two packages.
 
 The JAX package scans each stack (``lax.scan``) under ``jax.checkpoint``;
 the port runs a Python loop over the stacked axis, over views of each
-layer's slice.  Decode writes the KV caches in place.  The recurrent
-families (hybrid, ssm) are not ported yet.
+layer's slice, each step under ``torch.utils.checkpoint`` when a
+``remat_policy`` is given (``"nothing"``: full recomputation; ``"dots"``:
+the matmul outputs saved).  Decode writes the KV caches in place.  The
+cross-entropy loss is computed in sequence chunks whose logits are
+recomputed in backward, so the full [B, S, V] logits never exist.  The
+recurrent families (hybrid, ssm) are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from . import attention, mlp, moe
 from .layers import activation, dense_init, embed_init, rmsnorm, zeros
+
+
+REMAT_POLICIES = ("none", "nothing", "dots")
+# Ops whose outputs the "dots" policy keeps (the JAX package's
+# dots_with_no_batch_dims_saveable; bmm as well, the MoE experts' matmuls).
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+               torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under activation recomputation: ``"nothing"`` saves only its
+    inputs (``jax.checkpoint``), ``"dots"`` also the matmul outputs;
+    ``"none"``, or no gradient to take, runs it as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    if policy == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if policy == "dots":
+            kw["context_fn"] = functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 def pad_vocab(v: int, mult: int = 16) -> int:
@@ -115,7 +153,7 @@ def _register(module: nn.Module, tree: dict) -> None:
             module.add_module(k, _Tree(v))
         else:
             if not isinstance(v, nn.Parameter):
-                v = nn.Parameter(v, requires_grad=False)
+                v = nn.Parameter(v)
             module.register_parameter(k, v)
 
 
@@ -234,8 +272,10 @@ class Model(nn.Module):
         return x @ params["w_unembed_in"]
 
     # ---- forward (train/prefill) -------------------------------------------
-    def forward(self, params, batch):
-        """Final hidden states (after ``ln_f``) of a batch."""
+    def forward(self, params, batch, *, remat_policy: str = "nothing"):
+        """Final hidden states (after ``ln_f``) of a batch.  Each layer (a
+        gemma3 unit) runs under ``remat_policy`` while gradients are
+        taken."""
         cfg = self.cfg
         fam = cfg.family
         self._last_aux = None
@@ -254,22 +294,30 @@ class Model(nn.Module):
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        x = self._run_stack(params, x, positions)
+        x = self._run_stack(params, x, positions, remat_policy)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
-    def _run_stack(self, params, x, positions):
+    def _run_stack(self, params, x, positions, remat_policy: str):
         cfg = self.cfg
+
+        def dense_step(window, theta):
+            return _remat(lambda x, p: _attn_mlp_fwd(p, cfg, x, positions,
+                                                     window, theta), remat_policy)
+
         if cfg.family == "moe":
+            step = dense_step(None, cfg.rope_theta)
             for p in unstack(params["dense_layers"]) if "dense_layers" in params else ():
-                x = _attn_mlp_fwd(p, cfg, x, positions, None, cfg.rope_theta)
+                x = step(x, p)
+            mstep = _remat(lambda x, p: _attn_moe_fwd(p, cfg, x, positions,
+                                                      self.model_axis), remat_policy)
             auxs = []
             for p in unstack(params["layers"]):
-                x, aux = _attn_moe_fwd(p, cfg, x, positions, self.model_axis)
+                x, aux = mstep(x, p)
                 auxs.append(aux)
             self._last_aux = torch.stack(auxs).mean()
             return x
         if cfg.pattern_local:
-            for unit_p in unstack(params["units"]):
+            def unit(x, unit_p):
                 layers = unstack(unit_p)
                 for p in layers[:cfg.pattern_local]:
                     x = _attn_mlp_fwd(p, cfg, x, positions, cfg.window_size,
@@ -277,14 +325,71 @@ class Model(nn.Module):
                 for p in layers[cfg.pattern_local:]:
                     x = _attn_mlp_fwd(p, cfg, x, positions, None,
                                       cfg.rope_theta * 100.0)
+                return x
+            ustep = _remat(unit, remat_policy)
+            for unit_p in unstack(params["units"]):
+                x = ustep(x, unit_p)
+            rstep = dense_step(cfg.window_size, cfg.rope_theta)
             for p in unstack(params["rem"]) if "rem" in params else ():
-                x = _attn_mlp_fwd(p, cfg, x, positions, cfg.window_size,
-                                  cfg.rope_theta)
+                x = rstep(x, p)
             return x
+        step = dense_step(cfg.window_size, cfg.rope_theta)
         for p in unstack(params["layers"]):
-            x = _attn_mlp_fwd(p, cfg, x, positions, cfg.window_size,
-                              cfg.rope_theta)
+            x = step(x, p)
         return x
+
+    # ---- chunked loss -------------------------------------------------------
+    def loss(self, params, batch, *, remat_policy: str = "nothing",
+             seq_chunk: int = 512):
+        """Mean cross-entropy of the next token (dense, moe, vlm: after the
+        image prefix) or of the masked frames (audio), in float32, plus
+        ``0.01 · aux`` for MoE.  The logits are made ``seq_chunk``
+        positions at a time and recomputed in backward.
+
+        The JAX package's loss drops the last ``s mod seq_chunk`` targets
+        when ``s = seq - 1`` exceeds ``seq_chunk`` and does not divide by it
+        (``src/repro/models/transformer.py:351-353``); the port takes them
+        as a last, shorter chunk.  Where ``s`` divides, the two agree."""
+        cfg = self.cfg
+        hidden = self.forward(params, batch, remat_policy=remat_policy)
+        if cfg.family == "audio":
+            targets = batch["targets"]
+            weights = batch["mask"].float()       # masked prediction
+            hidden_t = hidden
+        elif cfg.family == "vlm":
+            s_img = batch["image_embeds"].shape[1]
+            hidden_t = hidden[:, s_img:][:, :-1]
+            targets = batch["tokens"][:, 1:]
+            weights = None
+        else:
+            hidden_t = hidden[:, :-1]
+            targets = batch["tokens"][:, 1:]
+            weights = None
+
+        def chunk_ce(h, t, w):
+            # logsumexp - gold, in float32; no nll_loss (it has no
+            # deterministic CUDA kernel).
+            logits = self._logits(params, h).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+            ce = lse - gold
+            return torch.sum(ce if w is None else ce * w)
+
+        body = _remat(chunk_ce, "nothing")
+        s = hidden_t.shape[1]
+        seq_chunk = min(seq_chunk, s)
+        tot = None
+        for i in range(0, s, seq_chunk):
+            sl = slice(i, min(i + seq_chunk, s))
+            part = body(hidden_t[:, sl], targets[:, sl],
+                        None if weights is None else weights[:, sl])
+            tot = part if tot is None else tot + part
+        count = (torch.sum(weights) if weights is not None
+                 else torch.tensor(float(targets.numel()), device=hidden.device))
+        loss = tot / torch.clamp(count, min=1.0)
+        if self._last_aux is not None:
+            loss = loss + 0.01 * self._last_aux
+        return loss
 
     # ---- decode -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int):

@@ -703,3 +703,120 @@ def test_lm_on_gpu_matches_cpu(cuda_device, arch):
             got, c_gpu = gpu.decode_step(gpu.params, c_gpu,
                                          toks[:, pos:pos + 1].to(cuda_device), pos)
             close(got, want)
+
+
+# Rows of the inverse wider than a band's shared memory (56,320 int32
+# values) take the striped route: a row at the band route's limit and one
+# past it, the shapes a lossy checkpoint reaches (qwen3-8b's untied head
+# [4096, 151,936]; a flattened float32 expert stack) and a 3-D group.
+WIDE_INV_SHAPES = [(1, 2, 56320), (1, 2, 56321), (1, 4096, 151936),
+                   (1, 32, 1048576), (2, 3, 5, 100000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE_INV_SHAPES)
+def test_lorenzo_inv_rows_of_any_width(cuda_device, shape):
+    rng = np.random.default_rng(shape[-1])
+    d = torch.from_numpy(rng.integers(-2 ** 30, 2 ** 30, shape, dtype=np.int32))
+    d = d.to(cuda_device)
+    eb = torch.from_numpy(rng.uniform(1e-3, 0.5, shape[0])).to(cuda_device)
+    before = lorenzo3d.inv_launches
+    got = lorenzo3d.lorenzo3d_inv(d, eb)
+    want = lorenzo3d.lorenzo_decode_plain(d, eb)
+    torch.cuda.synchronize()
+    assert lorenzo3d.inv_launches == before + 1
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_lorenzo_inv_striped_scratch_is_small(cuda_device):
+    """The striped route's scratch: the bands' carry rows (1/8 of delta)
+    and the stripes' left prefixes (1/2048 of it)."""
+    d = torch.ones((1, 64, 200000), dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lorenzo3d.lorenzo3d_inv(d, [1e-3])
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - 8 * d.numel()
+    assert scratch <= 4 * d.numel() // 4
+
+
+def _train_pair(cuda_device, arch="qwen3-4b"):
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg = configs.get_reduced(arch)
+    cpu = M.build_model(cfg, model_axis=1)
+    params = M.init_params(cpu, seed=0, device="cpu")
+    gpu = M.build_model(cfg, model_axis=1)
+    gpu.load_params(_to(params, cuda_device))
+    return cfg, cpu, gpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m"])
+def test_train_step_on_gpu_matches_cpu(cuda_device, arch):
+    """One ``make_train_step`` from the same float32 parameters and batch
+    on the card and the CPU (TF32 off): loss within 1e-5 relative,
+    gradients and the global norm within 1e-4 of their largest, moments
+    within 1e-4 of each leaf's largest, and the parameters within a
+    hundredth of a step wherever the gradient stands above its rounding
+    noise (1e-5 of its leaf's largest; below it m̂ / (√v̂ + ε) ≈ sign(g)
+    may flip)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg, cpu, gpu = _train_pair(cuda_device, arch)
+    batch = M.demo_batch(cfg, 2, 32, seed=1, device="cpu")
+    lr = 1e-3
+    out = []
+    for m, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        params = m.params
+        b = _to(batch, dev)
+        grads = torch.autograd.grad(m.loss(params, b), tree_leaves(params))
+        opt = adamw_init(params)
+        params, opt, met = M.make_train_step(m, lr=lr)(params, opt, b, 0)
+        out.append((float(met["loss"]), float(met["grad_norm"]), grads, params, opt))
+    (lc, nc, gc, pc, oc), (lg, ng, gg, pg, og) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert abs(ng - nc) <= 1e-4 * nc
+    for a, b in zip(list(gg) + tree_leaves(og.mu) + tree_leaves(og.nu),
+                    list(gc) + tree_leaves(oc.mu) + tree_leaves(oc.nu)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-20
+    for a, b, g in zip(tree_leaves(pg), tree_leaves(pc), gc):
+        keep = g.abs() >= 1e-5 * float(g.abs().max())
+        d = (a.detach().cpu() - b.detach()).abs()[keep]
+        assert float(d.max()) <= 1e-2 * lr
+
+
+@pytest.mark.cuda
+def test_restart_drill_on_gpu_bit_for_bit(cuda_device, tmp_path):
+    """``launch.train.train`` on the card, failing at step 3 under
+    ``run_with_restarts`` and resumed from the step-2 checkpoint: the
+    final checkpoint equals an uninterrupted run's byte for byte."""
+    import types
+
+    from repro_torch.checkpoint import run_with_restarts
+    from repro_torch.launch import train as train_lib
+
+    def args(d, fail=None):
+        return types.SimpleNamespace(
+            arch="qwen3-4b", preset="reduced", steps=6, batch=2, seq=32,
+            lr=3e-3, seed=0, microbatch=1, ckpt_dir=str(tmp_path / d),
+            ckpt_every=2, keep=3, resume=True, lossy_ckpt_eb=None,
+            fail_at_step=fail, step_deadline=120.0, log_every=0,
+            device=str(cuda_device))
+    attempts = []
+
+    def make():
+        attempts.append(1)
+        return train_lib.train(args("a", 3 if len(attempts) == 1 else None))
+    rep = run_with_restarts(make)
+    whole = train_lib.train(args("b"))
+    assert len(attempts) == 2 and rep["resumed_from"] == 2
+    assert rep["last_loss"] == whole["last_loss"] < whole["first_loss"]
+    for name in ("params.bin", "opt.bin"):
+        a = (tmp_path / "a" / "step_6" / name).read_bytes()
+        assert a == (tmp_path / "b" / "step_6" / name).read_bytes(), name

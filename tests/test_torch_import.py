@@ -1,8 +1,9 @@
 """The port stands alone: importing ``repro_torch`` and running a small
 compress/decode on the CPU, serving a field through
-``repro_torch.ArchiveServer``, and serving the reduced qwen3-4b LM through
-``repro_torch.launch.serve``, loads neither JAX nor any module of
-``repro``."""
+``repro_torch.ArchiveServer``, serving the reduced qwen3-4b LM through
+``repro_torch.launch.serve`` and training it through
+``repro_torch.launch.train`` (with NeurLZ-compressed checkpoints), loads
+neither JAX nor any module of ``repro``."""
 import os
 import subprocess
 import sys
@@ -30,6 +31,14 @@ import repro_torch.launch.serve
 report = repro_torch.launch.serve.serve(types.SimpleNamespace(
     arch="qwen3-4b", batch=2, prompt_len=8, gen=4, seed=0, device="cpu"))
 assert report["generated"] == 4
+import tempfile
+import repro_torch.launch.train
+report = repro_torch.launch.train.train(types.SimpleNamespace(
+    arch="qwen3-4b", preset="reduced", steps=6, batch=2, seq=32, lr=3e-3,
+    seed=0, microbatch=1, ckpt_dir=tempfile.mkdtemp(), ckpt_every=3, keep=2,
+    resume=True, lossy_ckpt_eb=1e-5, fail_at_step=None, step_deadline=120.0,
+    log_every=0, device="cpu"))
+assert report["last_loss"] < report["first_loss"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

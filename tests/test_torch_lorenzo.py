@@ -146,6 +146,39 @@ def test_inverse_band_decomposition_matches_undelta(shape, bh):
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
+def _striped_undelta(d, ws, bh):
+    """The striped route of the inverse kernel (rows wider than a band's
+    shared memory) in plain torch: each stripe of ``ws`` columns decoded by
+    the band decomposition alone, plus the stripe's left prefix P[f, z, y,
+    s] (the segment sums of each row, their exclusive scan over the
+    stripes, then the inclusive prefix over y and z), in int64 wrapped to
+    int32 as the kernel's unsigned sums wrap."""
+    f, nz, h, w = lorenzo3d._dims(d)
+    d = d.reshape(f, nz, h, w)
+    ns = -(-w // ws)
+    seg = torch.stack([d[..., s * ws:(s + 1) * ws].long().sum(-1)
+                       for s in range(ns)], dim=-1)              # [f, z, y, s]
+    left = torch.cumsum(seg, dim=-1) - seg
+    left = torch.cumsum(torch.cumsum(left, dim=2), dim=1)
+    parts = [_band_undelta(d[..., s * ws:(s + 1) * ws].contiguous(), bh).long()
+             + left[..., s, None] for s in range(ns)]
+    q = torch.cat(parts, dim=-1)
+    return ((q + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+@pytest.mark.parametrize("ws,bh", [(8, 3), (7, 8), (24, 1), (5, 20)])
+@pytest.mark.parametrize("shape", [(1,) + SHAPE, (3,) + SHAPE, (2,) + SHAPE[1:]])
+def test_inverse_striped_decomposition_matches_undelta(shape, ws, bh):
+    """Stripes that divide the rows (8 of 24), that do not (7, 5), one
+    stripe of the whole row, with bands of 3, 8, 1 and 20 rows: the prefix
+    sums of the plain inverse, int32 sums wrapping."""
+    rng = np.random.default_rng(ws + bh + len(shape))
+    d = torch.from_numpy(rng.integers(-2 ** 28, 2 ** 28, shape, dtype=np.int32))
+    want = lorenzo3d.lorenzo_undelta_plain(d, axes=range(1, d.ndim))
+    got = _striped_undelta(d, ws, bh).reshape(shape)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 def _field(dataset, rel_eb):
     """A snapshot field with a NaN and a CODE_CAP overflow at its bound."""
     name = ref_fields.DATASET_FIELDS[dataset][-1]
