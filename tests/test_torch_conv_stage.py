@@ -89,31 +89,76 @@ def _mixed_snapshot():
     return fields, {"c": (0.05, "relaxed")}
 
 
-@pytest.mark.parametrize("compressor", ["szlike", "szlike-lorenzo", "zfplike"])
-def test_stage_plans_counts_and_archives_as_reference(compressor):
+GROUPS = {"abd": ("a", "b", "d"), "c": ("c",), "e": ("e",)}   # the plan's
+STAT_KEYS = ("fields", "groups", "batched_fields", "fallback_fields", "calls")
+
+
+def _resolve(pkg_bounds, names, own):
+    return pkg_bounds.resolve_bounds(
+        list(names), {n: pkg_bounds.ErrorBound(abs=a, mode=m)
+                      for n, (a, m) in own.items() if n in names}, 1e-3)
+
+
+def _reference_group(compressor, part):
+    """The reference's stage run on one group of the plan alone (its
+    archives and reconstructions, and its stats): groups are compressed
+    independently, so these are the entries of a run over the whole
+    snapshot, and its stats add up to that run's.  Each group compiles the
+    reference's eager ops at its own shape, in a case of its own."""
     fields, own = _mixed_snapshot()
-    specs = {n: (abs_eb, mode) for n, (abs_eb, mode) in own.items()}
-    ref_res = ref_bounds.resolve_bounds(
-        list(fields), {n: ref_bounds.ErrorBound(abs=a, mode=m)
-                       for n, (a, m) in specs.items()}, 1e-3)
-    port_res = bounds.resolve_bounds(
-        list(fields), {n: bounds.ErrorBound(abs=a, mode=m)
-                       for n, (a, m) in specs.items()}, 1e-3)
+    sub = {n: fields[n] for n in GROUPS[part]}
+    ref = ref_stage.ConvStage(compressor, 1e-3, bounds=_resolve(ref_bounds, sub, own),
+                              lowering="eager")
+    return ref.run(sub), ref.stats.as_dict()
+
+
+@pytest.mark.parametrize("part", list(GROUPS) + ["whole"])
+@pytest.mark.parametrize("compressor", ["szlike", "szlike-lorenzo", "zfplike"])
+def test_stage_plans_counts_and_archives_as_reference(compressor, part):
+    """Each group of the plan against the reference's run of it: archives
+    and reconstructions byte-identical, the same stats.  Then the whole
+    snapshot in one run: the same plan as the reference's, the groups'
+    entries and summed stats, and ``decompress_many`` of the whole decoding
+    as the reference's does."""
+    fields, own = _mixed_snapshot()
+    if part != "whole":
+        sub = {n: fields[n] for n in GROUPS[part]}
+        port = conv_stage.ConvStage(compressor, 1e-3,
+                                    bounds=_resolve(bounds, sub, own), device="cpu")
+        got = port.run(sub)
+        want, want_stats = _reference_group(compressor, part)
+        for key in STAT_KEYS:
+            assert port.stats.as_dict()[key] == want_stats[key], key
+        for name in sub:
+            (arc, rec), (ref_arc, ref_rec) = got[name], want[name]
+            assert repro.core.archive.dumps(arc) == repro.core.archive.dumps(ref_arc)
+            assert rec.tobytes() == ref_rec.tobytes()
+        return
+
+    # The whole snapshot in one run: the plan, the stats summed over the
+    # groups and each group's entries, against the port's runs of the
+    # groups alone, which the cases above hold against the reference's
+    # (so this case compiles the reference's decode alone).
+    ref_res, port_res = _resolve(ref_bounds, fields, own), _resolve(bounds, fields, own)
     assert ({n: (b.rel, b.abs, b.mode) for n, b in port_res.items()}
             == {n: (b.rel, b.abs, b.mode) for n, b in ref_res.items()})
-
-    ref = ref_stage.ConvStage(compressor, 1e-3, bounds=ref_res,
-                              lowering="eager")
+    ref = ref_stage.ConvStage(compressor, 1e-3, bounds=ref_res, lowering="eager")
     port = conv_stage.ConvStage(compressor, 1e-3, bounds=port_res, device="cpu")
     metas = {n: (x.shape, x.dtype) for n, x in fields.items()}
-    assert port.plan(metas) == ref.plan(metas) == [["a", "b", "d"], ["c"], ["e"]]
-    want, got = ref.run(fields), port.run(fields)
+    assert port.plan(metas) == ref.plan(metas) == [list(g) for g in GROUPS.values()]
+    got = port.run(fields)
+    groups = []
+    for names in GROUPS.values():
+        sub = {n: fields[n] for n in names}
+        alone = conv_stage.ConvStage(compressor, 1e-3, bounds=_resolve(bounds, sub, own),
+                                     device="cpu")
+        groups.append((alone.run(sub), alone.stats.as_dict()))
+    want = {n: v for out, _ in groups for n, v in out.items()}
     skip = ("conv_s", "lowered_calls", "lowering")
     assert (port.stats.as_dict().keys()
             == {k for k in ref.stats.as_dict() if k not in skip} | {"conv_s"})
-    for key, value in port.stats.as_dict().items():
-        if key != "conv_s":
-            assert value == ref.stats.as_dict()[key], key
+    for key in STAT_KEYS:
+        assert port.stats.as_dict()[key] == sum(st[key] for _, st in groups), key
     assert port.stats.batched_fields == 3 and port.stats.calls == 3
     assert got["c"][0]["abs_eb"] == 0.05
     for name in fields:

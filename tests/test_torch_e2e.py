@@ -1,4 +1,7 @@
-"""The port's main path as a whole against the JAX package's serial engine:
+"""The port's main path as a whole against the JAX package's serial engine,
+beginning with its conventional stage, the ``szlike`` interpolation
+compressor, byte for byte at 9×20×24 (Hurricane, float32; Miranda,
+float64):
 compress a small Hurricane snapshot with the reference's initial weights and
 batch order carried across, then decode; the same for the ``szlike-lorenzo``
 path, whose conventional stage is one batched group.  Both reference runs
@@ -14,9 +17,13 @@ once for both.
 * the reference's entries streamed into an ``NLZSTRM2`` container by the
   reference's appender open lazily in the port and decode as above;
 * the paper's direct-learning ablation (``learn_residual=False``) against
-  the reference's serial engine with the same tolerances.
+  the reference's serial engine with the same tolerances;
+* a field degraded by injection (``repro_torch.faults``) or by a
+  non-finite loss packs to the same bytes as the reference's degraded
+  entry, and decodes to its conventional reconstruction.
 """
 import io
+import math
 
 import jax
 import numpy as np
@@ -25,6 +32,8 @@ import torch
 
 import repro
 import repro_torch
+from repro import faults as ref_faults
+from repro.compressors import quantize as ref_quantize
 from repro.compressors import szlike as ref_sz
 from repro.core import archive as ref_archive
 from repro.core import neurlz as ref_neurlz
@@ -32,7 +41,11 @@ from repro.core import online_trainer as ref_trainer
 from repro.core import skipping_dnn as ref_dnn
 from repro.data import fields as ref_fields
 from repro_torch import compressors
+from repro_torch import faults as port_faults
+from repro_torch import obs as port_obs
+from repro_torch.compressors import quantize as port_quantize
 from repro_torch.compressors import szlike as port_sz
+from repro_torch.compressors.quantize import CODE_CAP
 from repro_torch.compressors import zfplike as port_zfp
 from repro_torch import streaming
 from repro_torch.core import archive as arc_io
@@ -43,7 +56,7 @@ from repro_torch.core import skipping_dnn as port_dnn
 # per worker keeps the port's tests from crowding out the others.
 torch.set_num_threads(1)
 
-SHAPE = (9, 20, 24)      # the shape of test_torch_szlike: one JAX compile
+SHAPE = (9, 20, 24)      # every reference run of this module: one JAX compile
 EPOCHS, SEED, REL_EB = 2, 0, 1e-3
 FIELDS = ref_fields.make_fields("hurricane", SHAPE, seed=1)
 
@@ -64,6 +77,94 @@ def _carried_across(fields):
 
 def _max_err(a, b):
     return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+
+
+@pytest.mark.parametrize("rel_eb", [1e-2, 1e-4])
+@pytest.mark.parametrize("dataset", ["hurricane", "miranda"])
+def test_payloads_and_rec_byte_identical(dataset, rel_eb):
+    """The ``szlike`` interpolation compressor against the reference's:
+    payloads, header numbers and reconstruction byte-identical (float64
+    elementwise arithmetic with round-half-even in both), and each package
+    decodes the other's archive to the same bytes.  First in this module:
+    the hurricane cases pay the reference's compile at SHAPE, which its
+    runs below reuse."""
+    x, eb = _szlike_field(dataset, rel_eb)
+    assert x.dtype == np.dtype(ref_fields.DATASET_DTYPES[dataset])
+    ref_arc, ref_rec = ref_sz.compress(x, abs_eb=eb, lowering="eager")
+    arc, rec = port_sz.compress(x, abs_eb=eb, device="cpu")
+    for key in ("codes", "unpred", "literals"):
+        assert arc[key]["payload"] == ref_arc[key]["payload"], key
+    for key in ("mean", "eb_int", "abs_eb", "pad_shape", "shape", "level",
+                "dtype", "nbytes"):
+        assert arc[key] == ref_arc[key], key
+    assert rec.dtype == ref_rec.dtype
+    assert rec.tobytes() == ref_rec.tobytes()
+    # Both escapes made it into the literal stream.
+    assert ref_sz._decode_mask(arc["unpred"]).sum() >= 2
+
+    port_dec = port_sz.decompress(arc, device="cpu")
+    assert port_dec.tobytes() == ref_sz.decompress(arc).tobytes()
+    assert port_dec.tobytes() == rec.tobytes()
+    assert port_sz.decompress(ref_arc, device="cpu").tobytes() == ref_rec.tobytes()
+
+
+def _szlike_field(dataset, rel_eb):
+    """A snapshot field, its absolute bound from the clean field, then a NaN
+    literal (its neighbours' predictions turn non-finite too) and a value
+    whose code overflows CODE_CAP at that bound."""
+    name = ref_fields.DATASET_FIELDS[dataset][-1]
+    x = ref_fields.make_fields(dataset, SHAPE, seed=1)[name].copy()
+    eb = port_quantize.abs_bound_from_rel(x, rel_eb)
+    assert eb == ref_quantize.abs_bound_from_rel(x, rel_eb)
+    x[4, 7, 5] = np.nan
+    x[2, 3, 11] = x[2, 3, 11] + 4.0 * CODE_CAP * eb
+    return x, eb
+
+
+# ---- degraded fields against the reference (the fault-tolerance layer) ----
+# These run the reference's serial engine on FIELDS at EPOCHS, as the main
+# path does: the first warms its conventional stage's compile, the main
+# path adds its trainer's, and the injected case reuses both.
+
+def _port_faulted(**kw):
+    cfg = neurlz.NeurLZConfig(epochs=EPOCHS, **kw)
+    return neurlz.compress_impl(FIELDS, REL_EB, config=cfg, device="cpu")
+
+
+def _ref_faulted(**kw):
+    return repro.NeurLZ(engine="serial", lowering="eager", conv_batch=False,
+                        epochs=EPOCHS, **kw).compress(FIELDS, rel_eb=REL_EB)
+
+
+def _check_degraded_decode(arc, degraded):
+    """Every field holds its bound; a degraded one decodes to its
+    conventional reconstruction."""
+    dec = repro_torch.Archive.from_dict(arc, device="cpu").decode_all()
+    for name, x in FIELDS.items():
+        e = arc["fields"][name]
+        assert np.abs(dec[name].astype(np.float64) - x).max() <= e["abs_eb"]
+        if name in degraded:
+            assert dec[name].tobytes() == port_sz.decompress(
+                e["conv"], device="cpu").tobytes()
+
+
+def test_non_finite_loss_degrades_as_the_reference(monkeypatch):
+    def port_nan(model, inputs, targets, cfg, *, schedule=None, on_epoch=None):
+        return [math.nan]
+
+    def ref_nan(params, inputs, targets, cfg, net_cfg, **kw):
+        return params, None, [math.nan]
+
+    monkeypatch.setattr(online_trainer, "train", port_nan)
+    monkeypatch.setattr(ref_trainer, "train", ref_nan)
+    arc, ref = _port_faulted(), _ref_faulted()
+    assert arc["timing"]["degraded_fields"] == list(FIELDS)
+    assert ref["timing"]["degraded_fields"] == list(FIELDS)
+    for name in FIELDS:
+        assert arc["fields"][name]["degraded"] == "non-finite-loss"
+        assert (ref_archive.dumps(arc["fields"][name])
+                == ref_archive.dumps(ref["fields"][name]))
+    _check_degraded_decode(arc, set(FIELDS))
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +227,24 @@ def test_main_path_matches_reference(tmp_path, ref_main):
         # The port decoding the reference's weights: float32 tolerance.
         eb = ref_arc["fields"][name]["abs_eb"]
         assert _max_err(port_on_ref[name], ref_dec[name]) <= 1e-3 * eb
+
+
+def test_injected_degraded_entry_equals_the_reference():
+    plan = {"train.precip": 0}
+    tel = port_obs.Telemetry()
+    arc = _port_faulted(telemetry=tel, faults=port_faults.FaultConfig(
+        injector=port_faults.FaultInjector(plan)))
+    ref = _ref_faulted(faults=ref_faults.FaultConfig(
+        injector=ref_faults.FaultInjector(plan)))
+    e = arc["fields"]["precip"]
+    assert e["degraded"] == "injected"
+    assert ref_archive.dumps(e) == ref_archive.dumps(ref["fields"]["precip"])
+    assert arc["timing"]["degraded_fields"] == ref["timing"]["degraded_fields"]
+    assert arc["timing"]["degraded_fields"] == ["precip"]
+    assert tel.counters["faults.degraded"] == 1
+    assert sorted(tel.traces) == ["cloud", "w"]     # no trace for precip
+    assert arc["bitrate"]["precip"] == ref["bitrate"]["precip"]
+    _check_degraded_decode(arc, {"precip"})
 
 
 def test_direct_learning_matches_reference():

@@ -47,7 +47,10 @@ print("LOADED", bad)
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    env = dict(os.environ, PYTHONPATH=_SRC)
+    # One intra-op thread, as the suite's workers run (the port's test
+    # files set it): the default, a thread a core, oversubscribes the
+    # cores the other workers share and doubles the run even alone.
+    env = dict(os.environ, PYTHONPATH=_SRC, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -199,6 +199,15 @@ def pair(arch):
     return jm, jp, m
 
 
+def reference_tree(arch):
+    """The reference's parameter tree at the reduced preset, traced without
+    compiling its init (``jax.eval_shape``): zeros of each leaf's shape and
+    dtype, as numpy arrays."""
+    jm = JM.build_model(jconfigs.get_reduced(arch))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+
 @functools.lru_cache(maxsize=None)
 def batches(arch):
     jcfg, cfg = jconfigs.get_reduced(arch), configs.get_reduced(arch)
@@ -251,7 +260,11 @@ def test_decode_matches_reference_at_every_position(arch):
 
 @pytest.mark.parametrize("arch", ATTENTION_ARCHS)
 def test_flatten_params_matches_checkpoint_keys(arch):
-    _, jp, m = pair(arch)
+    """The reference's tree carried across (``params_from_jax``): keys,
+    shapes and dtypes."""
+    jp = reference_tree(arch)
+    m = M.build_model(configs.get_reduced(arch))
+    m.load_params(M.params_from_jax(jp, "cpu"))
     want = {k: (a.shape, str(a.dtype)) for k, a in _flatten(jp).items()}
     got = {k: (tuple(p.shape), str(p.dtype).split(".")[1])
            for k, p in M.flatten_params(m).items()}
@@ -262,7 +275,7 @@ def test_flatten_params_matches_checkpoint_keys(arch):
                                   "gemma3-4b", "llava-next-34b"])
 def test_init_params_shapes_match_reference_tree(arch):
     # The port's own init draws other values, but the same tree.
-    _, jp, _ = pair(arch)
+    jp = reference_tree(arch)
     m = M.build_model(configs.get_reduced(arch))
     M.init_params(m, seed=0, device="cpu")
     want = {k: a.shape for k, a in _flatten(jp).items()}
