@@ -66,13 +66,14 @@ def train(args) -> dict:
     losses = []
     t0 = time.time()
     for step in range(start_step, args.steps):
+        # The stream advances on every step, as the JAX package's does, so a
+        # checkpoint's stream position is the same whichever family it holds.
+        batch = {"tokens": torch.from_numpy(stream.next_batch()).to(dev)}
         if cfg.family == "audio":
             batch = M.demo_batch(cfg, args.batch, args.seq, seed=step, device=dev)
         elif cfg.family == "vlm":
             batch = M.demo_batch(cfg, args.batch, args.seq + cfg.frontend_tokens,
                                  seed=step, device=dev)
-        else:
-            batch = {"tokens": torch.from_numpy(stream.next_batch()).to(dev)}
         with watchdog.step(step):
             params, opt_state, metrics = step_fn(params, opt_state, batch, step)
             loss = float(metrics["loss"])     # the step's end, on the host

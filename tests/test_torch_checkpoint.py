@@ -326,6 +326,25 @@ def test_launch_train_resumes_and_reports_like_reference(tmp_path):
             tmp_path / "b" / "step_6" / name)
 
 
+def test_launch_train_advances_the_stream_for_a_vlm_arch(tmp_path):
+    """llava-next-34b (vlm) trains on its demo batches, yet the token
+    stream advances on every step, as the reference driver's does
+    (``src/repro/launch/train.py:64-69``): each checkpoint's
+    ``extra.stream`` equals the reference stream's after as many
+    batches."""
+    from repro.data.tokens import TokenStream as RefTokenStream
+
+    args = _args(tmp_path, arch="llava-next-34b", steps=4, seq=16)
+    train_lib.train(args)
+    cfg = jconfigs.get_reduced("llava-next-34b")
+    for step in (2, 4):
+        ref = RefTokenStream(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
+        for _ in range(step):
+            ref.next_batch()
+        meta = json.loads((tmp_path / f"step_{step}" / "meta.json").read_text())
+        assert meta["extra"]["stream"] == ref.checkpoint() == {"seed": 0, "step": step}
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("holds the no-GPU error")
