@@ -93,7 +93,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     bfloat16 and granite-moe-3b-a800m (40 experts, top 8) at full width,
     each prefilled with a 32-token prompt at batch 4 and decoding 32
     greedy tokens, the decode step timed against its bound (the weights
-    read once); one full-width float32 MoE layer of granite on the card
+    read once); the recurrent zamba2-7b (68 Mamba2 layers and one shared
+    attention block) and xlstm-350m at full width and depth in bfloat16,
+    served the same way, their bounds adding the recurrent state read and
+    written once; one full-width float32 MoE layer of granite on the card
     and the CPU, its routing (experts, slots, kept tokens) equal and its
     output within MOE_TOL;
 11. the train path, the LM substrate's training: (a) qwen3-4b at full
@@ -102,14 +105,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     ``TokenStream`` at batch 8 x 128 under a ``StepWatchdog``: every loss
     and gradient norm finite, the last loss below the first; the step's
     wall time, its device time and kernels from a trace of
-    TRAIN_TRACE_STEPS more steps, against its bound; (b) one step of the
-    reduced qwen3-4b and granite-moe on card and CPU (loss, gradients,
-    update) and ``microbatch=2`` against one step; (c) the restart drills
-    of ``launch.train.train`` on the card: a failure at step 3 resumed by
-    ``run_with_restarts`` equal byte for byte to an uninterrupted run, the
-    same with NeurLZ-compressed weights, and lossy checkpoints through the
-    Lorenzo kernels (bound held, card restore equal to the CPU's, one
-    launch per lossy leaf) and ``neurlz_grad_archive`` equal on both;
+    TRAIN_TRACE_STEPS more steps, against its bound; the same for
+    xlstm-350m and zamba2-7b at full width and depth; (b) steps of the
+    reduced qwen3-4b, granite-moe, zamba2-7b and xlstm-350m on card and
+    CPU (loss, gradients, update gated on the first step, the recurrent
+    two in float64; later steps recorded) and ``microbatch=2`` against one
+    step; (c) the restart drills of ``launch.train.train`` on the card: a
+    failure at step 3 resumed by ``run_with_restarts`` equal byte for byte
+    to an uninterrupted run, the same with NeurLZ-compressed weights for
+    qwen3-4b and xlstm-350m, and lossy checkpoints through the Lorenzo
+    kernels (bound held, card restore equal to the CPU's, one launch per
+    lossy leaf) and ``neurlz_grad_archive`` equal on both;
 12. a ``zfplike`` conventional round trip on one full field;
 13. the launch count of every kernel over each path, counted from 0 just
     before the path: each kernel of a path must have launched in it (the
@@ -194,13 +200,16 @@ TRACE_TRIES = 4
 RETRACED: dict[str, int] = {}
 
 
-def traced(fn):
+def traced(fn, cpu: bool = True):
     """Run ``fn()`` inside a torch.profiler trace whose window reaches
-    TRACE_PAD_S past the device work on both sides; returns the profiler."""
+    TRACE_PAD_S past the device work on both sides; returns the profiler.
+    ``cpu=False`` records the device's activity alone (a trace of tens of
+    thousands of launches is then several times quicker to read)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         time.sleep(TRACE_PAD_S)
         fn()
         torch.cuda.synchronize()
@@ -478,12 +487,13 @@ def conv_bwd_phase(dev, report: dict) -> dict:
 
 
 GROUP_F = 3    # fields of the batched path's one group
-# Training cut from the paper's 100 epochs on three paths, so that the run
+# Training cut from the paper's 100 epochs on four paths, so that the run
 # stays inside its time limit on a slower host (the batched path at
-# DURABLE_EPOCHS, held against the durable path's serial reference); the
+# DURABLE_EPOCHS, held against the durable path's serial reference at the
+# same epochs; 10 until the recurrent families' lm and train rows came); the
 # main and streaming paths train 100.
 LORENZO_EPOCHS = 5
-DURABLE_EPOCHS = 10
+DURABLE_EPOCHS = 5
 
 
 def grouped_phase(dev, report: dict) -> dict:
@@ -891,7 +901,8 @@ def lorenzo_phase(dev, fields, report: dict) -> dict:
 
 
 def trace_steps(step, steps: int = 10, counters=()) -> dict:
-    """Trace ``steps`` calls of ``step(i)`` with torch.profiler after three
+    """Trace ``steps`` calls of ``step(i)`` with torch.profiler (device
+    activity only) after three
     warm-up calls: wall time per step, device-busy time per step (the sum
     of the CUDA kernels' durations; one stream, so they do not overlap),
     kernels per step and the kernels that take the most time; then time
@@ -911,7 +922,7 @@ def trace_steps(step, steps: int = 10, counters=()) -> dict:
             step(i)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-    kernels = device_events(traced(steps_run))
+    kernels = device_events(traced(steps_run, cpu=False))
     if not kernels:
         raise AssertionError("the training-step trace held no device activity")
     per_step = {f"{name}_launches_per_step": (getattr(mod, attr) - before[name]) / steps
@@ -1682,7 +1693,7 @@ def streaming_path(dev, fields, epochs: int, main: dict, report: dict
 
 
 SERVE_MAX_BYTES = 250_000_000   # holds two of the 100 MB decoded fields
-SERVE_EPOCHS = 10               # the transcode's training, as the durable path
+SERVE_EPOCHS = 5                # the transcode's training, as the durable path
 
 
 def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
@@ -1861,6 +1872,7 @@ def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
 
 
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 32   # the candidate cell qwen3-4b-serve
+LM_RECURRENT = (("zamba2_bf16", "zamba2-7b"), ("xlstm_bf16", "xlstm-350m"))
 LM_TOL = 2e-2        # decode vs forward, float32: rtol = atol, as the JAX
 #   package's tests/test_models_smoke.py holds its teacher-forced decode
 MOE_TOL = 1e-4       # MoE layer card vs CPU, float32 with TF32 off:
@@ -1874,12 +1886,26 @@ def _lm_free() -> None:
     torch.cuda.empty_cache()
 
 
+def recurrent_state_bytes(cache) -> int:
+    """Bytes of a decode cache's recurrent states (Mamba2 state and conv
+    window, mLSTM and sLSTM cells): every leaf but the attention KV
+    caches' ``k`` and ``v``."""
+    total = 0
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            total += recurrent_state_bytes(v)
+        elif k not in ("k", "v"):
+            total += v.numel() * v.element_size()
+    return total
+
+
 def _lm_serve_full(dev, cfg, seed: int, check) -> dict:
     """``prefill_into_cache`` of a LM_PROMPT-token prompt at batch LM_BATCH
     on the full-width model ``cfg`` (its own dtype), then LM_GEN greedy
     tokens; the decode step timed against its bound (the parameter bytes
-    read once at HBM_BYTES_PER_S) and its device time from a trace of four
-    steps; the prefill's last logits beside the forward's (no limit)."""
+    read once, and the recurrent states read and written once, at
+    HBM_BYTES_PER_S) and its device time from a trace of four steps; the
+    prefill's last logits beside the forward's (no limit)."""
     import torch
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch import serve
@@ -1920,14 +1946,16 @@ def _lm_serve_full(dev, cfg, seed: int, check) -> dict:
             for i in range(4):
                 model.decode_step(params, cache, prompts[:, i:i + 1],
                                   max_len - 4 + i)
-        events = device_events(traced(steps))
+        events = device_events(traced(steps, cpu=False))
     steps_n = LM_GEN - 1
     ms = decode_s / steps_n * 1e3
-    bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    state_bytes = recurrent_state_bytes(cache)
+    bound_ms = (param_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3
     width = logits.shape[-1]
     out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "n_params": n_params,
-           "param_bytes": param_bytes, "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+           "param_bytes": param_bytes, "recurrent_state_bytes": state_bytes,
+           "batch": LM_BATCH, "prompt_len": LM_PROMPT,
            "generated": int(toks.shape[1]), "init_s": init_s,
            "prefill_s": prefill_s, "prefill_ms_per_step": prefill_s / LM_PROMPT * 1e3,
            "decode_s": decode_s, "decode_ms_per_step": ms,
@@ -1961,7 +1989,8 @@ def lm_path(dev, report: dict) -> dict:
     off): every position's teacher-forced decode logits against the
     forward's, within LM_TOL; (c) qwen3-4b at full width in its own
     bfloat16 and (d) granite-moe-3b-a800m at full width (``model_axis=1``,
-    as serve builds it), each served as ``_lm_serve_full``; and one MoE
+    as serve builds it), and (e) the recurrent zamba2-7b and xlstm-350m at
+    full width and depth, each served as ``_lm_serve_full``; and one MoE
     layer of granite at full width in float32 on the card and the CPU over
     a [4, 32, 1536] input: kept tokens, experts and slots equal, output
     within MOE_TOL.  The path launches none of the port's kernels."""
@@ -2030,6 +2059,8 @@ def lm_path(dev, report: dict) -> dict:
                                           0, check)
     gcfg = configs.get_config("granite-moe-3b-a800m")
     out["granite_bf16"] = _lm_serve_full(dev, gcfg, 0, check)
+    for key, arch in LM_RECURRENT:
+        out[key] = _lm_serve_full(dev, configs.get_config(arch), 0, check)
 
     # One MoE layer at full width, float32, on the card and on the CPU.
     g32 = dataclasses.replace(gcfg, dtype="float32")
@@ -2061,10 +2092,11 @@ def lm_path(dev, report: dict) -> dict:
 
     launches = kernels.launch_counts()
     out["launches"] = launches
+    served = ("qwen3_4b_bf16", "granite_bf16") + tuple(k for k, _ in LM_RECURRENT)
     out["device_peak_bytes"] = max(out[k]["max_memory_allocated"] for k in
-                                   ("qwen3_4b_f32", "qwen3_4b_bf16", "granite_bf16"))
+                                   ("qwen3_4b_f32",) + served)
     out["seconds"] = time.perf_counter() - t_path
-    for k in ("qwen3_4b_bf16", "granite_bf16"):
+    for k in served:
         r = out[k]
         print(f"lm {k}: {r['n_params']:,} params, prefill {r['prefill_s']:.3f} s, "
               f"decode {r['decode_ms_per_step']:.3f} ms/step "
@@ -2079,37 +2111,84 @@ def lm_path(dev, report: dict) -> dict:
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 8   # the reference driver's
 #   default batch and sequence; 8 steps, as train() would run them
-TRAIN_TRACE_STEPS = 4     # traced after the 8 (short traces lose activity)
+# Steps traced after the 8, device activity only: at least about two
+# seconds of steps (short traces lose activity), fewer where a step holds
+# tens of thousands of launches.
+TRAIN_TRACE_STEPS = {"qwen3-4b": 4, "zamba2-7b": 2, "xlstm-350m": 1}
 BF16_FLOPS = 989e12       # H100 SXM, bf16 dense on the tensor cores
+F32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores (TF32 off)
+# At full width and depth: zamba2-7b's weights, gradients and float32
+# moments take 12 B a parameter (68.8 GB of 5.74 B) before temporaries, and
+# its step peaks at 75.5 GB of the card's 80.
+TRAIN_ARCHS = ("qwen3-4b", "xlstm-350m", "zamba2-7b")
+PARITY_ARCHS = ("qwen3-4b", "granite-moe-3b-a800m", "zamba2-7b", "xlstm-350m")
+PARITY_STEPS = 3          # the update gate on the first; later ones recorded
 TRAIN_LOSS_TOL = 1e-5     # card vs CPU, float32 with TF32 off: relative
 TRAIN_GRAD_TOL = 1e-4     # |Δ| <= TRAIN_GRAD_TOL * max|CPU leaf|
 TRAIN_LOSSY_EB = 1e-5     # the lossy drill's weight bound (relative)
 
 
-def train_step_flops(cfg, batch: int, seq: int) -> float:
-    """Matmul operations of one step under full remat: the layers' forward
-    twice (the run and its recomputation), the head's forward twice (each
-    loss chunk recomputed), and the backward's two products per forward
-    product: 4 forwards.  A forward: 2 per matmul parameter per token,
-    the attention's two [S, S] products per layer (the port computes the
-    full square), and the head over the S - 1 predicted positions."""
-    hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    d, f = cfg.d_model, cfg.d_ff
-    per_layer = d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f
+def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """``(bf16, float32)`` operations of the products of one step under
+    full remat: the layers' forward twice (the run and its recomputation),
+    the head's forward twice (each loss chunk recomputed), and the
+    backward's two products per forward product: 4 forwards.
+
+    A forward counts 2 operations per matmul parameter per token (bf16,
+    on the tensor cores), the head over the S - 1 predicted positions, and
+    the sequence-mixing products, which the port computes in float32 (TF32
+    off, so on the CUDA cores): attention's two [S, S] products per layer
+    (the scores are float32 and, to keep the count simple, the
+    probabilities' product with V too; the port computes the full square);
+    Mamba2's C·B scores and their product with x over the full square of
+    each 128-position chunk, and the state's read C·S and write B⊗x;
+    mLSTM's q·k scores and their product with v over the full square of a
+    chunk, and q·S and the S update; sLSTM's recurrent product per step.
+    Elementwise work (gates, the depthwise conv, norms, the normalisers'
+    vector products) is not counted."""
     tokens = batch * seq
-    fwd = (2 * tokens * per_layer * cfg.n_layers
-           + 4 * batch * h * seq * seq * hd * cfg.n_layers
-           + 2 * batch * (seq - 1) * d * cfg.vocab_size)
-    return 4.0 * fwd
+    d = cfg.d_model
+
+    def attn_mlp():
+        hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        return (2 * tokens * (d * h * hd + 2 * d * kv * hd + h * hd * d
+                              + 3 * d * cfg.d_ff),
+                4 * batch * h * seq * seq * hd)
+
+    if cfg.family == "hybrid":
+        di = cfg.ssm_expand * d
+        n, pdim = cfg.ssm_state, cfg.ssm_headdim
+        h = di // pdim
+        cl = min(128, seq)
+        mamba = (2 * tokens * (d * (2 * di + 2 * n + h) + di * d),
+                 2 * tokens * cl * (n + h * pdim) + 4 * tokens * n * h * pdim)
+        units = cfg.n_layers // cfg.hybrid_attn_every
+        blocks = [(cfg.n_layers - units, mamba), (units, attn_mlp())]
+    elif cfg.family == "ssm":
+        du, h = 2 * d, cfg.n_heads
+        hk = du // h
+        cl = min(128, seq)
+        mlstm = (2 * tokens * (d * 2 * du + 3 * du * du + du * 2 * h + du * d),
+                 4 * tokens * cl * du + 4 * tokens * du * hk)
+        dff = int(cfg.xlstm_proj_factor * d)
+        slstm = (2 * tokens * (4 * d * d + 3 * d * dff), 8 * tokens * d * (d // h))
+        units = cfg.n_layers // cfg.xlstm_slstm_every
+        blocks = [(cfg.n_layers - units, mlstm), (units, slstm)]
+    else:
+        blocks = [(cfg.n_layers, attn_mlp())]
+    bf16 = sum(n * b for n, (b, _) in blocks) + 2 * batch * (seq - 1) * d * cfg.vocab_size
+    f32 = sum(n * f for n, (_, f) in blocks)
+    return 4.0 * bf16, 4.0 * f32
 
 
-def _train_full_width(dev, check) -> dict:
-    """(a) qwen3-4b at full width in its bfloat16: TRAIN_STEPS steps of
+def _train_full_width(dev, check, arch: str) -> dict:
+    """(a) ``arch`` at full width and depth in its bfloat16: TRAIN_STEPS
+    steps of
     ``make_train_step(remat_policy="nothing", lr_fn=warmup_cosine(3e-3, 1,
     8))`` on the ``TokenStream`` at TRAIN_BATCH x TRAIN_SEQ under a
     ``StepWatchdog``, as ``launch.train.train``'s loop runs them (no
     checkpoint: the final save would move 40 GB through the host codec);
-    then TRAIN_TRACE_STEPS more steps traced."""
+    then TRAIN_TRACE_STEPS[arch] more steps traced."""
     import math
     import statistics
 
@@ -2120,7 +2199,7 @@ def _train_full_width(dev, check) -> dict:
     from repro_torch.models import model as M
     from repro_torch.optim import warmup_cosine
 
-    cfg = configs.get_config("qwen3-4b")
+    cfg = configs.get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = M.build_model(cfg, model_axis=1)
@@ -2150,17 +2229,21 @@ def _train_full_width(dev, check) -> dict:
         walls.append(time.perf_counter() - t)
         norms.append(float(met["grad_norm"]))
         lrs.append(float(met["lr"]))
-        print(f"train full width: step {step} loss {losses[-1]:.4f} "
+        print(f"train {arch} full width: step {step} loss {losses[-1]:.4f} "
               f"grad norm {norms[-1]:.4f} lr {lrs[-1]:.3e} "
               f"{walls[-1] * 1e3:.1f} ms", flush=True)
     peak = torch.cuda.max_memory_allocated()
 
+    n_traced = TRAIN_TRACE_STEPS[arch]
+
     def traced_steps():
-        for i in range(TRAIN_TRACE_STEPS):
+        for i in range(n_traced):
             run(TRAIN_STEPS + i)
-    events = device_events(traced(traced_steps))
+    t_trace = time.perf_counter()
+    events = device_events(traced(traced_steps, cpu=False))
+    t_trace = time.perf_counter() - t_trace
     check(bool(events), "the train step's trace held no device activity")
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / TRAIN_TRACE_STEPS
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / n_traced
     by_name: dict[str, float] = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -2168,26 +2251,30 @@ def _train_full_width(dev, check) -> dict:
 
     step_ms = statistics.median(walls[1:]) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    flops, f32_flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     # The optimizer's least traffic: the gradient read twice (the clip's
     # norm, the update), both moments and the parameter read and written.
     adam_bytes = sum(p.numel() * (2 * p.element_size() + 8 + 8 + 2 * p.element_size())
                      for p in model.parameters())
-    bound_ms = (flops / BF16_FLOPS + adam_bytes / HBM_BYTES_PER_S) * 1e3
+    bound_ms = (flops / BF16_FLOPS + f32_flops / F32_FLOPS
+                + adam_bytes / HBM_BYTES_PER_S) * 1e3
     out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "n_params": n_params,
            "param_bytes": param_bytes, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "steps": TRAIN_STEPS, "init_s": init_s, "losses": losses,
            "grad_norms": norms, "lrs": lrs, "step_wall_ms": [w * 1e3 for w in walls],
            "step_ms_median_2_8": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-           "flops_per_step": flops, "optimizer_bytes_per_step": adam_bytes,
+           "flops_per_step": flops, "f32_flops_per_step": f32_flops,
+           "optimizer_bytes_per_step": adam_bytes,
            "bound_ms": bound_ms, "bound_matmul_ms": flops / BF16_FLOPS * 1e3,
+           "bound_f32_ms": f32_flops / F32_FLOPS * 1e3,
            "bound_optimizer_ms": adam_bytes / HBM_BYTES_PER_S * 1e3,
            "x_bound": step_ms / bound_ms,
            "device_ms_per_step": busy,
-           "device_kernels_per_step": len(events) / TRAIN_TRACE_STEPS,
+           "device_kernels_per_step": len(events) / n_traced,
+           "traced_steps": n_traced, "trace_s": t_trace,
            "device_busy_share": busy / step_ms,
-           "top_kernels_ms_per_step": [[k[:90], v / 1e3 / TRAIN_TRACE_STEPS]
+           "top_kernels_ms_per_step": [[k[:90], v / 1e3 / n_traced]
                                        for k, v in top],
            "watchdog": watchdog.stats(), "max_memory_allocated": peak}
     check(all(math.isfinite(v) for v in losses), f"a loss is not finite: {losses}")
@@ -2200,11 +2287,11 @@ def _train_full_width(dev, check) -> dict:
 
 
 def update_err(new, ref, grads, lr: float) -> float:
-    """The largest gap between two updated parameter trees' leaves, in
-    units of ``lr``, over the entries whose reference gradient is at least
-    1e-5 of its leaf's largest: where |g| is at its rounding noise, one
-    Adam step m̂ / (√v̂ + ε) ≈ sign(g) may flip, which is the same update
-    of another rounding, not a fault."""
+    """The largest gap between two updates (or two parameter trees updated
+    from the same one) over the entries whose reference gradient is at
+    least 1e-5 of its leaf's largest, in units of ``lr``: where |g| is at
+    its rounding noise, one Adam step m̂ / (√v̂ + ε) ≈ sign(g) may flip,
+    which is the same update of another rounding, not a fault."""
     worst = 0.0
     for a, b, g in zip(new, ref, grads):
         g = g.detach().cpu().float().abs()
@@ -2215,63 +2302,97 @@ def update_err(new, ref, grads, lr: float) -> float:
 
 
 def _train_parity(dev, check) -> dict:
-    """(b) One train step of the reduced qwen3-4b and granite-moe (float32)
-    from the same parameters and batch on the card and the CPU: loss,
-    gradients and updated parameters (``update_err`` within a hundredth of
-    a step); and for qwen3-4b ``microbatch=2`` against one step over the
-    whole batch on the card (granite's aux loss is taken per microbatch,
-    as in the JAX package, so its loss is another function there)."""
+    """(b) PARITY_STEPS train steps of each reduced PARITY_ARCHS model from
+    the same parameters and batch on the card and the CPU: the first
+    step's loss, gradients and update (``update_err`` within a hundredth
+    of a step) gated; each later step's update recorded against the CPU's
+    (from parameters apart by the earlier steps' rounding); and, except
+    for granite, ``microbatch=2`` against one step over the whole batch on
+    the card (granite's aux loss is taken per microbatch, as in the JAX
+    package, so its loss is another function there).
+
+    The attention archs are gated in their float32.  The recurrent archs
+    run twice: in float32, recorded, and in float64, gated.  Their float32
+    gradients carry 3-5e-5 of a leaf's largest of rounding (six layers of
+    exponential gates multiply a rounding by 2-3 each; the same gap
+    separates the JAX package's float32 gradients from the port's on the
+    CPU), so entries of a few Adam ε (1e-8) pass the gate's filter, where
+    the first update g / (|g| + ε) is not yet sign(g) and moves by several
+    hundredths of a step (PERF.md §6, PR 21)."""
+    import dataclasses
+
     import torch
     from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.optim import adamw_init
     from repro_torch.optim.adamw import tree_leaves
 
-    def to(tree, d):   # a copy: the step updates its parameters in place
-        return {k: to(v, d) if isinstance(v, dict) else v.detach().to(d, copy=True)
+    def to(tree, d, dtype=None):   # a copy: the step updates its parameters in place
+        return {k: to(v, d, dtype) if isinstance(v, dict)
+                else v.detach().to(d, dtype if v.is_floating_point() else None,
+                                   copy=True)
                 for k, v in tree.items()}
 
     def rel(a, b):
-        return float((a.detach().cpu().float() - b.detach().cpu().float()).abs().max()
-                     / (b.detach().float().abs().max() + 1e-30))
+        return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max()
+                     / (b.detach().double().abs().max() + 1e-30))
 
     lr = 1e-3
     out = {}
-    for arch in ("qwen3-4b", "granite-moe-3b-a800m"):
-        cfg = configs.get_reduced(arch)
-        init = M.init_params(M.build_model(cfg, model_axis=1), seed=0, device="cpu")
-        batch = M.demo_batch(cfg, 4, 32, seed=1, device="cpu")
-        runs = {}
-        plan = [("cpu", "cpu", 1), ("card", dev, 1)]
-        if cfg.family != "moe":
-            plan.append(("card_mb2", dev, 2))
-        for where, d, mb in plan:
-            m = M.build_model(cfg, model_axis=1)
-            params = m.load_params(to(init, d))
-            b = to(batch, d)
-            leaves = tree_leaves(params)
-            grads = torch.autograd.grad(m.loss(params, b), leaves)
-            opt = adamw_init(params)
-            params, opt, met = M.make_train_step(m, lr=lr, microbatch=mb)(
-                params, opt, b, 0)
-            runs[where] = (float(met["loss"]), grads, tree_leaves(params))
-        (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs["card"]
-        r = {"loss_cpu": lc, "loss_card": lg, "loss_rel_err": abs(lg - lc) / abs(lc),
-             "grad_err_rel_to_leaf_max": max(rel(a, b) for a, b in zip(gg, gc)),
-             "update_err_in_lr": update_err(pg, pc, gc, lr)}
-        check(r["loss_rel_err"] <= TRAIN_LOSS_TOL, f"{arch}: card loss {r}")
-        check(r["grad_err_rel_to_leaf_max"] <= TRAIN_GRAD_TOL,
-              f"{arch}: card gradients {r}")
-        check(r["update_err_in_lr"] <= 1e-2, f"{arch}: card update {r}")
-        if "card_mb2" in runs:
-            lm, _, pm = runs["card_mb2"]
-            r.update({"loss_card_microbatch2": lm,
-                      "microbatch2_loss_rel_err": abs(lm - lg) / abs(lg),
-                      "microbatch2_update_err_in_lr": update_err(pm, pg, gg, lr)})
-            check(r["microbatch2_loss_rel_err"] <= TRAIN_LOSS_TOL
-                  and r["microbatch2_update_err_in_lr"] <= 1e-2,
-                  f"{arch}: microbatch=2 {r}")
-        out[arch] = r
+    for arch in PARITY_ARCHS:
+        base = configs.get_reduced(arch)
+        recurrent = base.family in ("hybrid", "ssm")
+        for dtype in ("float32", "float64") if recurrent else ("float32",):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            gated = dtype == "float64" or not recurrent
+            init = M.init_params(M.build_model(base, model_axis=1), seed=0,
+                                 device="cpu")
+            batch = M.demo_batch(base, 4, 32, seed=1, device="cpu")
+            runs = {}
+            plan = [("cpu", "cpu", 1, PARITY_STEPS), ("card", dev, 1, PARITY_STEPS)]
+            if cfg.family != "moe" and gated:
+                plan.append(("card_mb2", dev, 2, 1))
+            for where, d, mb, steps in plan:
+                m = M.build_model(cfg, model_axis=1)
+                params = m.load_params(to(init, d, cfg.params_dtype))
+                b = to(batch, d)
+                leaves = tree_leaves(params)
+                opt = adamw_init(params)
+                step_fn = M.make_train_step(m, lr=lr, microbatch=mb)
+                losses, grads, updates = [], [], []
+                for i in range(steps):
+                    grads.append(torch.autograd.grad(m.loss(params, b), leaves))
+                    before = [p.detach().clone() for p in leaves]
+                    params, opt, met = step_fn(params, opt, b, i)
+                    losses.append(float(met["loss"]))
+                    updates.append([p.detach() - q for p, q in zip(leaves, before)])
+                runs[where] = (losses, grads, updates)
+            (lc, gc, uc), (lg, gg, ug) = runs["cpu"], runs["card"]
+            r = {"dtype": dtype, "gated": gated, "loss_cpu": lc[0], "loss_card": lg[0],
+                 "loss_rel_err": abs(lg[0] - lc[0]) / abs(lc[0]),
+                 "grad_err_rel_to_leaf_max": max(rel(a, b) for a, b in zip(gg[0], gc[0])),
+                 "update_err_in_lr": update_err(ug[0], uc[0], gc[0], lr),
+                 "later_update_err_in_lr": [update_err(ug[i], uc[i], gc[i], lr)
+                                            for i in range(1, PARITY_STEPS)],
+                 "later_grad_err_rel_to_leaf_max": [
+                     max(rel(a, b) for a, b in zip(gg[i], gc[i]))
+                     for i in range(1, PARITY_STEPS)]}
+            if gated:
+                check(r["loss_rel_err"] <= TRAIN_LOSS_TOL, f"{arch}: card loss {r}")
+                check(r["grad_err_rel_to_leaf_max"] <= TRAIN_GRAD_TOL,
+                      f"{arch}: card gradients {r}")
+                check(r["update_err_in_lr"] <= 1e-2, f"{arch}: card update {r}")
+            if "card_mb2" in runs:
+                lm, _, um = runs["card_mb2"]
+                r.update({"loss_card_microbatch2": lm[0],
+                          "microbatch2_loss_rel_err": abs(lm[0] - lg[0]) / abs(lg[0]),
+                          "microbatch2_update_err_in_lr": update_err(um[0], ug[0],
+                                                                     gg[0], lr)})
+                check(r["microbatch2_loss_rel_err"] <= TRAIN_LOSS_TOL
+                      and r["microbatch2_update_err_in_lr"] <= 1e-2,
+                      f"{arch}: microbatch=2 {r}")
+            print(f"train parity {arch} {dtype}: {json.dumps(r)}", flush=True)
+            out[arch if dtype == "float32" else f"{arch}_{dtype}"] = r
     return out
 
 
@@ -2303,20 +2424,20 @@ def _train_drills(dev, check) -> dict:
         import shutil
         shutil.rmtree(root)
 
-    def args(name, fail=None, lossy=None):
+    def args(name, fail=None, lossy=None, arch="qwen3-4b"):
         return types.SimpleNamespace(
-            arch="qwen3-4b", preset="reduced", steps=6, batch=8, seq=64,
+            arch=arch, preset="reduced", steps=6, batch=8, seq=64,
             lr=3e-3, seed=0, microbatch=1, ckpt_dir=str(root / name),
             ckpt_every=2, keep=3, resume=True, lossy_ckpt_eb=lossy,
             fail_at_step=fail, step_deadline=120.0, log_every=0, device=str(dev))
 
-    def drill(name, lossy=None):
+    def drill(name, lossy=None, arch="qwen3-4b"):
         attempts = []
 
         def make():
             attempts.append(1)
             return train_lib.train(args(name, 3 if len(attempts) == 1 else None,
-                                        lossy))
+                                        lossy, arch))
         rep = run_with_restarts(make)
         check(len(attempts) == 2 and rep["resumed_from"] == 2,
               f"{name}: {len(attempts)} attempts, resumed from {rep['resumed_from']}")
@@ -2337,6 +2458,20 @@ def _train_drills(dev, check) -> dict:
     t0 = time.perf_counter()
     lossy = drill("lossy", TRAIN_LOSSY_EB)
     check(lossy["last_loss"] == lossy["last_loss"], "lossy drill: NaN loss")
+
+    # The recurrent xlstm-350m through the same drill, lossy: its float32
+    # leaves of 2 or more dimensions go through the Lorenzo kernels at each
+    # save, and back at the restart.
+    t1 = time.perf_counter()
+    f0, i0 = lz.fwd_launches, lz.inv_launches
+    xl = drill("xlstm_lossy", TRAIN_LOSSY_EB, "xlstm-350m")
+    out["xlstm_lossy"] = {"resumed": xl, "fwd_launches": lz.fwd_launches - f0,
+                          "inv_launches": lz.inv_launches - i0,
+                          "seconds": time.perf_counter() - t1}
+    check(xl["last_loss"] == xl["last_loss"] and xl["last_loss"] < xl["first_loss"],
+          f"xlstm lossy drill: {xl}")
+    check(lz.fwd_launches > f0 and lz.inv_launches > i0,
+          f"xlstm lossy drill launched no Lorenzo kernel: {out['xlstm_lossy']}")
 
     # The uninterrupted run's final weights, saved lossy on the card.
     cfg = configs.get_reduced("qwen3-4b")
@@ -2400,7 +2535,7 @@ def _train_drills(dev, check) -> dict:
 
 
 def train_path(dev, report: dict) -> dict:
-    """The LM substrate's training path: (a) qwen3-4b at full width,
+    """The LM substrate's training path: (a) TRAIN_ARCHS at full width,
     (b) the reduced presets on card and CPU, (c) the restart drills and
     lossy checkpoints (``_train_full_width``, ``_train_parity``,
     ``_train_drills``).  Its kernels: ``lorenzo3d_fwd`` / ``lorenzo3d_inv``
@@ -2413,22 +2548,26 @@ def train_path(dev, report: dict) -> dict:
 
     t_path = time.perf_counter()
     kernels.reset_launch_counts()
-    out = {"full_width": _train_full_width(dev, check),
+    full = {}
+    for arch in TRAIN_ARCHS:
+        full[arch] = _train_full_width(dev, check, arch)
+        r = full[arch]
+        print(f"train {arch} bf16 full width ({r['n_layers']} layers): "
+              f"{r['n_params']:,} params, step "
+              f"{r['step_ms_median_2_8']:.2f} ms (median of steps 2-8; "
+              f"{r['tokens_per_s']:.1f} tok/s; bound {r['bound_ms']:.2f} ms, "
+              f"x{r['x_bound']:.2f}; device {r['device_ms_per_step']:.2f} ms/step, "
+              f"{r['device_kernels_per_step']:.1f} kernels/step), loss "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, grad norms "
+              f"{[round(v, 4) for v in r['grad_norms']]}, max_memory_allocated "
+              f"{r['max_memory_allocated']:,}", flush=True)
+    out = {"full_width": full,
            "parity": _train_parity(dev, check),
            "drills": _train_drills(dev, check)}
     launches = kernels.launch_counts()
     out["launches"] = launches
-    out["device_peak_bytes"] = out["full_width"]["max_memory_allocated"]
+    out["device_peak_bytes"] = max(r["max_memory_allocated"] for r in full.values())
     out["seconds"] = time.perf_counter() - t_path
-    r = out["full_width"]
-    print(f"train qwen3-4b bf16 full width: {r['n_params']:,} params, step "
-          f"{r['step_ms_median_2_8']:.2f} ms (median of steps 2-8; "
-          f"{r['tokens_per_s']:.1f} tok/s; bound {r['bound_ms']:.2f} ms, "
-          f"x{r['x_bound']:.2f}; device {r['device_ms_per_step']:.2f} ms/step, "
-          f"{r['device_kernels_per_step']:.1f} kernels/step), loss "
-          f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, grad norms "
-          f"{[round(v, 4) for v in r['grad_norms']]}, max_memory_allocated "
-          f"{r['max_memory_allocated']:,}")
     print("train_path", json.dumps(out))
     report["train_path"] = out
     return launches
@@ -2503,34 +2642,48 @@ def main() -> int:
     print(f"data: hurricane {shape} x {list(fields)} float32, "
           f"{time.perf_counter() - t:.1f} s to generate")
 
-    summaries = {"conv2d3x3": conv_phase(dev, report),
-                 "conv2d3x3_bwd": conv_bwd_phase(dev, report),
-                 **grouped_phase(dev, report),
-                 "fused_enhance": enhance_phase(dev, shape, report),
-                 **lorenzo_phase(dev, fields, report)}
+    phase_s: dict[str, float] = {}
+    report["phase_s"] = phase_s
+
+    def timed(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    def kernel_phases():
+        return {"conv2d3x3": conv_phase(dev, report),
+                "conv2d3x3_bwd": conv_bwd_phase(dev, report),
+                **grouped_phase(dev, report),
+                "fused_enhance": enhance_phase(dev, shape, report),
+                **lorenzo_phase(dev, fields, report)}
+    summaries = timed("kernels", kernel_phases)
     if args.epochs < 100:
         print(f"every path: epochs cut to {args.epochs} of the paper's 100 "
               "(the shape is never cut)")
     # Each path runs with the counts set to 0 just before it; every kernel
     # of a path must have launched in it.
-    main_launches, main_kept = main_path(dev, fields, args.epochs, report)
+    main_launches, main_kept = timed("main", main_path, dev, fields, args.epochs,
+                                     report)
     cut = min(args.epochs, DURABLE_EPOCHS)
-    lorenzo_launches, lorenzo_kept = lorenzo_path(
-        dev, fields, min(args.epochs, LORENZO_EPOCHS), report)
-    durable_launches, serial_cut = durable_path(dev, fields, cut, main_kept,
-                                                report)
+    lorenzo_launches, lorenzo_kept = timed(
+        "lorenzo", lorenzo_path, dev, fields, min(args.epochs, LORENZO_EPOCHS),
+        report)
+    durable_launches, serial_cut = timed("durable", durable_path, dev, fields, cut,
+                                         main_kept, report)
     by_path = {"main": main_launches,
                "lorenzo": lorenzo_launches,
                "durable": durable_launches,
-               "batched": batched_path(dev, fields, cut, main_kept,
-                                       serial_cut, report)}
-    by_path["streaming"], container = streaming_path(
-        dev, fields, args.epochs, main_kept, report)
-    by_path["serve"] = serve_path(dev, min(args.epochs, SERVE_EPOCHS),
-                                  main_kept, lorenzo_kept, container, report)
-    by_path["lm"] = lm_path(dev, report)
+               "batched": timed("batched", batched_path, dev, fields, cut,
+                                main_kept, serial_cut, report)}
+    by_path["streaming"], container = timed(
+        "streaming", streaming_path, dev, fields, args.epochs, main_kept, report)
+    by_path["serve"] = timed("serve", serve_path, dev, min(args.epochs, SERVE_EPOCHS),
+                             main_kept, lorenzo_kept, container, report)
+    by_path["lm"] = timed("lm", lm_path, dev, report)
     _lm_free()
-    by_path["train"] = train_path(dev, report)
+    by_path["train"] = timed("train", train_path, dev, report)
     single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
     path_kernels = {"main": single,
                     "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),

@@ -1,3 +1,3 @@
-"""The LM substrate's attention families (dense, vlm, moe, audio): layers,
-attention with KV caches, GShard MoE, the model stacks and their step
-functions.  The recurrent families (hybrid, ssm) are a later slice."""
+"""The LM substrate's model families: dense, vlm, moe and audio (attention
+with KV caches, GShard MoE), hybrid (Mamba2 with a shared attention block)
+and ssm (xLSTM); the model stacks and their step functions."""

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import apply_rope, dense_init, head_rmsnorm, zeros
+from .layers import apply_rope, compute_dtype, dense_init, head_rmsnorm, zeros
 
 NEG = -1e30
 
@@ -57,7 +57,8 @@ def _sdpa(q, k, v, mask, cfg=None):
     kv = k.shape[2]
     groups = h // kv
     q = q.reshape(b, s, kv, groups, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / np.sqrt(hd)
+    acc = compute_dtype(q.dtype)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.to(acc), k.to(acc)) / np.sqrt(hd)
     scores = scores + mask[:, :, None, :, :]     # broadcast over groups
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)

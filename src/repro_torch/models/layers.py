@@ -5,6 +5,11 @@ package's convention (``w_in`` / ``w_out`` for the two halves of a
 tensor-parallel pair, ``embed``, ``*_experts_*``, 1-D scales), so a
 checkpoint's flat keys are the same in both packages.
 
+Norms, rotary angles, attention scores and the recurrent cells compute in
+float32 (the JAX package's precision) whatever the model's dtype, or in
+float64 for a float64 model (:func:`compute_dtype`), which the chip run
+uses as a well-conditioned card-vs-CPU check.
+
 Initializers draw from an explicit ``torch.Generator`` on the tensor's
 device; their values are not the JAX package's (tests carry its weights
 across with ``model.params_from_jax``).  Every initializer takes a
@@ -39,11 +44,17 @@ def zeros(shape, dtype, device, lead: tuple = ()):
     return torch.zeros((*lead, *shape), dtype=dtype, device=device)
 
 
+def compute_dtype(dtype) -> torch.dtype:
+    """float32, or float64 for a float64 model."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
-    x32 = x.float()
+    acc = compute_dtype(x.dtype)
+    x32 = x.to(acc)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(x.dtype)
+    return (y * (1.0 + scale.to(acc))).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float):
@@ -54,11 +65,12 @@ def apply_rope(x, positions, theta: float):
     """x: [..., S, H, D]; positions: [..., S] integer.  Rotates the two
     halves of the head dim against each other (not interleaved pairs)."""
     d = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device)      # [D/2]
-    ang = positions[..., None].float() * freqs                     # [..., S, D/2]
+    acc = compute_dtype(x.dtype)
+    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device, acc)  # [D/2]
+    ang = positions[..., None].to(acc) * freqs                     # [..., S, D/2]
     cos = torch.cos(ang)[..., None, :]                             # [..., S, 1, D/2]
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(acc), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

@@ -17,7 +17,7 @@ import torch
 from .. import device as device_lib
 from ..configs.base import ModelConfig
 from ..optim import adamw_init, adamw_update, global_norm
-from ..optim.adamw import tree_leaves, tree_unflatten
+from ..optim.adamw import tree_items, tree_leaves, tree_unflatten
 from .transformer import Model
 
 
@@ -192,5 +192,5 @@ def params_from_jax(tree: dict, device=None) -> dict:
 
 def flatten_params(model: Model) -> dict[str, torch.Tensor]:
     """The model's parameters under the JAX package's checkpoint keys
-    (``layers/attn/w_q_in``)."""
-    return {name.replace(".", "/"): p for name, p in model.named_parameters()}
+    (``layers/attn/w_q_in``), in its ``tree_flatten_with_path`` order."""
+    return {"/".join(path): p for path, p in tree_items(model.params)}

@@ -1,10 +1,15 @@
-"""Model stacks of the attention families: dense, vlm, moe and audio.
+"""Model stacks of the ten configs' families: dense, vlm, moe, audio, and
+the recurrent hybrid (zamba2: Mamba2 units and one shared attention block)
+and ssm (xLSTM: mLSTM units with an sLSTM each).
 
 The parameters are a nested dict of tensors with the JAX package's tree:
 the same keys, the same nesting and the same stacked leading axes (a
 ``layers`` stack of ``[L, ...]`` leaves; gemma3's ``units`` of
 ``[n_units, pattern_local + pattern_global, ...]`` and its windowed
-``rem``; deepseek's ``dense_layers`` before its MoE ``layers``).
+``rem``; deepseek's ``dense_layers`` before its MoE ``layers``; zamba2's
+``mamba_units`` of ``[n_units, unit - 1, ...]``, its unstacked
+``shared_attn`` and its ``mamba_rem``; xLSTM's ``units/mlstm`` of
+``[n_units, unit - 1, ...]`` and ``units/slstm`` of ``[n_units, ...]``).
 :class:`Model` registers that tree as its parameters, so
 ``model.named_parameters()`` with ``.`` read as ``/`` gives the JAX
 package's checkpoint keys (``layers/attn/w_q_in``), and checkpoints are
@@ -16,8 +21,10 @@ layer's slice, each step under ``torch.utils.checkpoint`` when a
 ``remat_policy`` is given (``"nothing"``: full recomputation; ``"dots"``:
 the matmul outputs saved).  Decode writes the KV caches in place.  The
 cross-entropy loss is computed in sequence chunks whose logits are
-recomputed in backward, so the full [B, S, V] logits never exist.  The
-recurrent families (hybrid, ssm) are not ported yet.
+recomputed in backward, so the full [B, S, V] logits never exist.
+zamba2's one shared attention block runs after every unit, so its gradient
+is the sum over its uses; the recurrent layers' states are float32 (float64
+in a float64 model).
 """
 from __future__ import annotations
 
@@ -30,8 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
-from . import attention, mlp, moe
-from .layers import activation, dense_init, embed_init, rmsnorm, zeros
+from . import attention, mlp, moe, ssm, xlstm
+from .layers import activation, compute_dtype, dense_init, embed_init, rmsnorm, zeros
 
 
 REMAT_POLICIES = ("none", "nothing", "dots")
@@ -91,6 +98,21 @@ def _attn_mlp_init(gen, cfg, dtype, device, lead, d_ff=None):
     }
 
 
+def _mamba_init(gen, cfg, dtype, device, lead):
+    return {"ln": zeros((cfg.d_model,), dtype, device, lead),
+            "mamba": ssm.init(gen, cfg, dtype, device, lead)}
+
+
+def _xlstm_unit_init(gen, cfg, dtype, device, n_units):
+    lead = (n_units, cfg.xlstm_slstm_every - 1)
+    return {
+        "mlstm": {"ln": zeros((cfg.d_model,), dtype, device, lead),
+                  "cell": xlstm.m_init(gen, cfg, dtype, device, lead)},
+        "slstm": {"ln": zeros((cfg.d_model,), dtype, device, (n_units,)),
+                  "cell": xlstm.s_init(gen, cfg, dtype, device, (n_units,))},
+    }
+
+
 def _attn_moe_init(gen, cfg, dtype, device, lead, model_axis):
     return {
         "ln1": zeros((cfg.d_model,), dtype, device, lead),
@@ -120,6 +142,22 @@ def _attn_moe_fwd(p, cfg, x, positions, model_axis):
     y, aux = moe.forward(p["moe"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps),
                          model_axis=model_axis)
     return x + y, aux
+
+
+def _mamba_fwd(p, cfg, x):
+    return x + ssm.forward(p["mamba"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps))
+
+
+def _mamba_decode(p, cfg, x, c):
+    o, _ = ssm.decode_step(p["mamba"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps), c)
+    return x + o
+
+
+def _xlstm_unit_fwd(unit_p, cfg, x):
+    for p in unstack(unit_p["mlstm"]):
+        x = x + xlstm.m_forward(p["cell"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps))
+    p = unit_p["slstm"]
+    return x + xlstm.s_forward(p["cell"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps))
 
 
 def _attn_decode(p, cfg, x, c, pos, window=None, theta=None, ring=False):
@@ -175,15 +213,10 @@ class Model(nn.Module):
     pos)``); ``load_params`` registers a tree as the module's parameters
     and ``params`` gives it back."""
 
-    FAMILIES = ("dense", "vlm", "moe", "audio")
+    FAMILIES = ("dense", "vlm", "moe", "audio", "hybrid", "ssm")
 
     def __init__(self, cfg, model_axis: int = 16):
         super().__init__()
-        if cfg.family in ("hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{cfg.name}: the recurrent families (hybrid through ssm.py, "
-                "ssm through xlstm.py) are the port's eleventh slice, still "
-                "to come (ROADMAP §1)")
         if cfg.family not in self.FAMILIES:
             raise ValueError(cfg.family)
         self.cfg = cfg
@@ -245,6 +278,18 @@ class Model(nn.Module):
             params["layers"] = _attn_moe_init(gen, cfg, dtype, dev,
                                               (cfg.n_layers - nd,),
                                               self.model_axis)
+        elif fam == "hybrid":
+            unit = cfg.hybrid_attn_every
+            n_units = cfg.n_layers // unit
+            rem = cfg.n_layers - n_units * unit
+            params["mamba_units"] = _mamba_init(gen, cfg, dtype, dev,
+                                                (n_units, unit - 1))
+            params["shared_attn"] = _attn_mlp_init(gen, cfg, dtype, dev, ())  # ONE copy
+            if rem:
+                params["mamba_rem"] = _mamba_init(gen, cfg, dtype, dev, (rem,))
+        elif fam == "ssm":  # xlstm
+            params["units"] = _xlstm_unit_init(
+                gen, cfg, dtype, dev, cfg.n_layers // cfg.xlstm_slstm_every)
         else:  # audio
             params["in_proj_in"] = dense_init(gen, cfg.d_model, cfg.d_model,
                                               dtype, dev)
@@ -274,8 +319,8 @@ class Model(nn.Module):
     # ---- forward (train/prefill) -------------------------------------------
     def forward(self, params, batch, *, remat_policy: str = "nothing"):
         """Final hidden states (after ``ln_f``) of a batch.  Each layer (a
-        gemma3 unit) runs under ``remat_policy`` while gradients are
-        taken."""
+        gemma3, zamba2 or xLSTM unit) runs under ``remat_policy`` while
+        gradients are taken."""
         cfg = self.cfg
         fam = cfg.family
         self._last_aux = None
@@ -316,6 +361,23 @@ class Model(nn.Module):
                 auxs.append(aux)
             self._last_aux = torch.stack(auxs).mean()
             return x
+        if cfg.family == "hybrid":
+            def unit(x, unit_p, shared):
+                for p in unstack(unit_p):
+                    x = _mamba_fwd(p, cfg, x)
+                return _attn_mlp_fwd(shared, cfg, x, positions, None, cfg.rope_theta)
+            ustep = _remat(unit, remat_policy)
+            for unit_p in unstack(params["mamba_units"]):
+                x = ustep(x, unit_p, params["shared_attn"])
+            rstep = _remat(lambda x, p: _mamba_fwd(p, cfg, x), remat_policy)
+            for p in unstack(params["mamba_rem"]) if "mamba_rem" in params else ():
+                x = rstep(x, p)
+            return x
+        if cfg.family == "ssm":
+            ustep = _remat(lambda x, p: _xlstm_unit_fwd(p, cfg, x), remat_policy)
+            for unit_p in unstack(params["units"]):
+                x = ustep(x, unit_p)
+            return x
         if cfg.pattern_local:
             def unit(x, unit_p):
                 layers = unstack(unit_p)
@@ -341,7 +403,8 @@ class Model(nn.Module):
     # ---- chunked loss -------------------------------------------------------
     def loss(self, params, batch, *, remat_policy: str = "nothing",
              seq_chunk: int = 512):
-        """Mean cross-entropy of the next token (dense, moe, vlm: after the
+        """Mean cross-entropy of the next token (dense, moe, hybrid, ssm,
+        vlm: after the
         image prefix) or of the masked frames (audio), in float32, plus
         ``0.01 · aux`` for MoE.  The logits are made ``seq_chunk``
         positions at a time and recomputed in backward.
@@ -369,7 +432,7 @@ class Model(nn.Module):
         def chunk_ce(h, t, w):
             # logsumexp - gold, in float32; no nll_loss (it has no
             # deterministic CUDA kernel).
-            logits = self._logits(params, h).float()
+            logits = self._logits(params, h).to(compute_dtype(h.dtype))
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
             ce = lse - gold
@@ -393,8 +456,8 @@ class Model(nn.Module):
 
     # ---- decode -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int):
-        """Zeroed KV caches, stacked like the layers, on the device of the
-        registered parameters."""
+        """Zeroed KV caches and recurrent states, stacked like the layers,
+        on the device of the registered parameters."""
         cfg = self.cfg
         dtype = cfg.params_dtype
         dev = self.embed.device
@@ -425,6 +488,22 @@ class Model(nn.Module):
                 cache["dense_layers"] = stack((nd,), max_len)
             cache["layers"] = stack((cfg.n_layers - nd,), max_len)
             return cache
+        if cfg.family == "hybrid":
+            unit = cfg.hybrid_attn_every
+            n_units = cfg.n_layers // unit
+            rem = cfg.n_layers - n_units * unit
+            cache = {"mamba_units": ssm.init_cache(cfg, batch, dtype, dev,
+                                                   (n_units, unit - 1)),
+                     "attn": stack((n_units,), max_len)}
+            if rem:
+                cache["mamba_rem"] = ssm.init_cache(cfg, batch, dtype, dev, (rem,))
+            return cache
+        if cfg.family == "ssm":
+            unit = cfg.xlstm_slstm_every
+            n_units = cfg.n_layers // unit
+            return {"units": {
+                "mlstm": xlstm.m_init_cache(cfg, batch, dev, (n_units, unit - 1)),
+                "slstm": xlstm.s_init_cache(cfg, batch, dev, (n_units,))}}
         raise ValueError(cfg.family)  # audio: encoder-only, no decode
 
     def decode_step(self, params, cache, tokens, pos):
@@ -468,6 +547,29 @@ class Model(nn.Module):
                                    rmsnorm(x, p["ln2"], cfg.norm_eps),
                                    model_axis=self.model_axis)
                 x = x + y
+        elif cfg.family == "hybrid":
+            shared = params["shared_attn"]
+            for unit_p, unit_c, attn_c in zip(unstack(params["mamba_units"]),
+                                              unstack(cache["mamba_units"]),
+                                              unstack(cache["attn"])):
+                for p, c in zip(unstack(unit_p), unstack(unit_c)):
+                    x = _mamba_decode(p, cfg, x, c)
+                x = _attn_mlp_decode(shared, cfg, x, attn_c, pos)
+            if "mamba_rem" in params:
+                for p, c in zip(unstack(params["mamba_rem"]),
+                                unstack(cache["mamba_rem"])):
+                    x = _mamba_decode(p, cfg, x, c)
+        elif cfg.family == "ssm":
+            for unit_p, unit_c in zip(unstack(params["units"]),
+                                      unstack(cache["units"])):
+                for p, c in zip(unstack(unit_p["mlstm"]), unstack(unit_c["mlstm"])):
+                    o, _ = xlstm.m_decode_step(
+                        p["cell"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps), c)
+                    x = x + o
+                p, c = unit_p["slstm"], unit_c["slstm"]
+                o, _ = xlstm.s_decode_step(p["cell"], cfg,
+                                           rmsnorm(x, p["ln"], cfg.norm_eps), c)
+                x = x + o
         else:
             raise ValueError(cfg.family)
 

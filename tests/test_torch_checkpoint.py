@@ -8,6 +8,7 @@ restores the other's directory.  The lossy cases use a small tree of 2-D,
 3-D and 4-D leaves, so the reference compiles its eager Lorenzo ops for few
 shapes.
 """
+import functools
 import json
 import os
 import subprocess
@@ -34,7 +35,7 @@ from repro_torch.data.tokens import TokenStream
 from repro_torch.launch import train as train_lib
 from repro_torch.models import model as M
 from repro_torch.optim import grad_compress
-from repro_torch.optim.adamw import AdamWState, tree_leaves
+from repro_torch.optim.adamw import AdamWState, tree_items, tree_leaves
 
 EB = 1e-5
 
@@ -203,6 +204,64 @@ back, _, _ = mgr.restore(1, tree)
 assert back["a"].dtype == torch.bfloat16
 sys.stdout.write(back["a"].view(torch.int16).numpy().tobytes().hex())
 """
+
+
+@functools.lru_cache(maxsize=None)
+def zamba2_bf16_tree():
+    """The reference's reduced zamba2-7b in bfloat16, its ``A_log``, ``D``
+    and ``dt_bias`` float32 (as its init keeps them) and filled with
+    values of a trained model's spread, so the lossy codec has a range to
+    bound."""
+    import dataclasses
+
+    jcfg = dataclasses.replace(jconfigs.get_reduced("zamba2-7b"), dtype="bfloat16")
+    with jax.enable_x64(False):
+        jp = jax.tree.map(np.asarray, jax.jit(JM.build_model(jcfg).init)(
+            jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(3)
+    for stack in ("mamba_units", "mamba_rem"):
+        for name in ("A_log", "D", "dt_bias"):
+            leaf = jp[stack]["mamba"][name]
+            assert leaf.dtype == np.float32 and leaf.ndim >= 2
+            jp[stack]["mamba"][name] = rng.standard_normal(leaf.shape).astype(np.float32)
+    return jp
+
+
+@pytest.mark.parametrize("eb", [None, EB])
+def test_mixed_dtype_checkpoint_bytes_equal_reference_both_ways(tmp_path, eb):
+    """A bfloat16 tree with float32 leaves: raw, the bfloat16 leaves as
+    their bits and the float32 ones as they are; lossy, the float32 leaves
+    of 2 or more dimensions through ``szlike`` Lorenzo (within eb · range)
+    and the bfloat16 ones raw.  The same bytes as the reference's, and each
+    package restores the other's directory to the same bits."""
+    jp = zamba2_bf16_tree()
+    jckpt.CheckpointManager(str(tmp_path / "ref"), lossy_weights_eb=eb).save(1, jp)
+    params = to_port(jp)
+    port = CheckpointManager(str(tmp_path / "port"), lossy_weights_eb=eb, device="cpu")
+    port.save(1, params)
+    assert (read(tmp_path / "port" / "step_1" / "params.bin")
+            == read(tmp_path / "ref" / "step_1" / "params.bin"))
+    entries = msgpack.unpackb(jckpt.codec.decompress_sniffed(
+        read(tmp_path / "port" / "step_1" / "params.bin")), raw=False)
+    lossy = {k for k, e in entries.items() if e["kind"] == "szlike"}
+    assert lossy == (set() if eb is None else {
+        f"{s}/mamba/{n}" for s in ("mamba_units", "mamba_rem")
+        for n in ("A_log", "D", "dt_bias")})
+    got, _, _ = port.restore(1, params)
+    cross, _, _ = CheckpointManager(str(tmp_path / "ref"), device="cpu").restore(1, params)
+    back, _, _ = jckpt.CheckpointManager(str(tmp_path / "port")).restore(1, jp)
+    for (path, a), c, b, x in zip(tree_items(got), tree_leaves(cross),
+                                  jax.tree.leaves(back), jax.tree.leaves(jp)):
+        assert a.dtype == c.dtype and str(a.dtype).split(".")[1] == str(x.dtype)
+        bits = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+        assert bits.numpy().tobytes() == (c.view(torch.int16) if c.dtype == torch.bfloat16
+                                          else c).numpy().tobytes()
+        assert bits.numpy().tobytes() == np.asarray(b).tobytes()
+        if "/".join(path) in lossy:
+            lim = eb * float(x.max() - x.min())
+            assert np.abs(a.numpy().astype(np.float64) - x).max() <= lim
+        else:
+            assert bits.numpy().tobytes() == x.tobytes()
 
 
 def test_bfloat16_checkpoint_reads_back_without_ml_dtypes(tmp_path):

@@ -114,5 +114,15 @@ def test_registry_and_cells_equal_reference():
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-350m"])
 def test_recurrent_families_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.build_model(configs.get_reduced(arch))
+    """The recurrent families were refused (``NotImplementedError``) until
+    the port's recurrent slice; now nothing refuses them: ``build_model``
+    takes them and ``launch.serve`` serves them, their caches recurrent
+    states.  Their parity with the reference is in ``test_torch_models.py``
+    and ``test_torch_recurrent.py``."""
+    assert configs.get_reduced(arch).family in M.build_model(
+        configs.get_reduced(arch)).FAMILIES
+    report = serve.serve(SimpleNamespace(arch=arch, batch=2, prompt_len=8, gen=4,
+                                         seed=0, device="cpu"))
+    assert report["generated"] == 4 and report["device"] == "cpu"
+    assert all(0 <= tok < configs.get_reduced(arch).vocab_size
+               for tok in report["sample_tokens"])

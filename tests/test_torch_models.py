@@ -5,7 +5,9 @@ package, on the CPU, with the JAX package's weights carried across by
 Tolerance (float32): max |port − reference| ≤ 1e-4 · max |reference| +
 1e-5, for every compared output (hidden states, logits, attention, MoE
 output and aux).  The embedding is held bit for bit.  The reference's
-forward and decode step are jitted once per arch (one compile each).
+forward and decode step are jitted once per arch (one compile each).  The
+recurrent archs (zamba2-7b, xlstm-350m) run the reference with 64-bit
+types off, as its dry run does, and are held in dtype as well.
 """
 import dataclasses
 import functools
@@ -31,6 +33,7 @@ REL, ABS = 1e-4, 1e-5
 ATTENTION_ARCHS = ["qwen3-4b", "gemma-2b", "gemma3-4b", "granite-moe-3b-a800m",
                    "deepseek-moe-16b", "llava-next-34b", "hubert-xlarge"]
 DECODE_ARCHS = [a for a in ATTENTION_ARCHS if a != "hubert-xlarge"]
+RECURRENT_ARCHS = ["zamba2-7b", "xlstm-350m"]
 # gemma3's reduced config has window 16: a 20-token prompt wraps the ring
 # buffers of its windowed layers (max_len 24 > window, so they cache 16).
 SEQ, MAX_LEN, BATCH = 20, 24, 2
@@ -258,21 +261,68 @@ def test_decode_matches_reference_at_every_position(arch):
             close(got, want)
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_forward_matches_reference(arch):
+    """Hidden states, and the prefill's last-position logits."""
+    jm, jp, m = pair(arch)
+    jb, tb = batches(arch)
+    with torch.inference_mode():
+        got = m.forward(m.params, tb)
+        last = M.make_prefill_step(m)(m.params, tb)
+    with jax.enable_x64(False):
+        want = jax.jit(jm.forward)(jp, jb)
+        want_last = jm._logits(jp, want[:, -1:])
+    assert str(got.dtype).split(".")[1] == str(want.dtype)
+    close(got, want)
+    close(last, want_last)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_decode_matches_reference_at_every_position(arch):
+    """Teacher-forced decode from zeroed caches (zamba2's shared attention
+    block holds one KV cache per unit): every position's logits, and the
+    caches' tree, shapes and dtypes (float32 states in a model of any
+    dtype)."""
+    jm, jp, m = pair(arch)
+    jb, tb = batches(arch)
+    jcache = jm.init_cache(BATCH, MAX_LEN)
+    cache = m.init_cache(BATCH, MAX_LEN)
+    assert (jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jcache)
+            == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[1]),
+                            cache))
+    toks = np.asarray(jb["tokens"])
+    with jax.enable_x64(False):
+        step = jax.jit(JM.make_decode_step(jm))
+        for pos in range(toks.shape[1]):
+            want, jcache = step(jp, jcache, toks[:, pos:pos + 1],
+                                jnp.asarray(pos, jnp.int32))
+            with torch.inference_mode():
+                got, cache = m.decode_step(m.params, cache,
+                                           tb["tokens"][:, pos:pos + 1], pos)
+            close(got, want)
+    flat = dict(_flatten(jax.tree.map(np.asarray, jcache)))
+    for k, v in _flatten(cache).items():
+        close(v, flat[k])
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS + RECURRENT_ARCHS)
 def test_flatten_params_matches_checkpoint_keys(arch):
     """The reference's tree carried across (``params_from_jax``): keys,
-    shapes and dtypes."""
+    shapes and dtypes in its ``tree_flatten_with_path`` order (the
+    recurrent archs' float32 ``A_log``, ``D`` and ``dt_bias`` among
+    them)."""
     jp = reference_tree(arch)
     m = M.build_model(configs.get_reduced(arch))
     m.load_params(M.params_from_jax(jp, "cpu"))
-    want = {k: (a.shape, str(a.dtype)) for k, a in _flatten(jp).items()}
-    got = {k: (tuple(p.shape), str(p.dtype).split(".")[1])
-           for k, p in M.flatten_params(m).items()}
+    want = [(k, (a.shape, str(a.dtype))) for k, a in _flatten(jp).items()]
+    got = [(k, (tuple(p.shape), str(p.dtype).split(".")[1]))
+           for k, p in M.flatten_params(m).items()]
     assert got == want
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m",
-                                  "gemma3-4b", "llava-next-34b"])
+                                  "gemma3-4b", "llava-next-34b"]
+                         + RECURRENT_ARCHS)
 def test_init_params_shapes_match_reference_tree(arch):
     # The port's own init draws other values, but the same tree.
     jp = reference_tree(arch)
@@ -280,3 +330,21 @@ def test_init_params_shapes_match_reference_tree(arch):
     M.init_params(m, seed=0, device="cpu")
     want = {k: a.shape for k, a in _flatten(jp).items()}
     assert {k: tuple(p.shape) for k, p in M.flatten_params(m).items()} == want
+
+
+def test_recurrent_init_keeps_float32_leaves_in_a_bfloat16_model():
+    """zamba2's ``A_log``, ``D`` and ``dt_bias`` stay float32 in a bfloat16
+    model, as the reference's do (``ssm.py:43-45``); every other leaf takes
+    the model's dtype."""
+    jcfg = dataclasses.replace(jconfigs.get_reduced("zamba2-7b"), dtype="bfloat16")
+    cfg = dataclasses.replace(configs.get_reduced("zamba2-7b"), dtype="bfloat16")
+    jp = jax.eval_shape(JM.build_model(jcfg).init, jax.random.PRNGKey(0))
+    want = {k: str(a.dtype) for k, a in _flatten(
+        jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), jp)).items()}
+    m = M.build_model(cfg)
+    M.init_params(m, seed=0, device="cpu")
+    got = {k: str(p.dtype).split(".")[1] for k, p in M.flatten_params(m).items()}
+    assert got == want
+    assert {k for k, d in got.items() if d == "float32"} == {
+        f"{s}/mamba/{n}" for s in ("mamba_units", "mamba_rem")
+        for n in ("A_log", "D", "dt_bias")}

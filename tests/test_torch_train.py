@@ -7,11 +7,21 @@ its models inside ``jax.enable_x64(False)`` (its chunked attention fails
 under 64-bit types, which its compressors turn on at import), and each of
 its jitted functions is compiled once per arch.
 
-Tolerances (float32): a loss within 2e-6 · |loss|; a gradient leaf within
-1e-5 · max |reference leaf| + 1e-7 (sums of up to 2·32·256 terms in
-another order; measured 1.2e-6); AdamW on the same inputs within 1 bfloat16 ulp on the
-parameters and 1e-6 of each moment leaf's largest value (elementwise
-relative error is ill-defined where b1·m + (1−b1)·g cancels).
+Tolerances (float32): a loss within 2e-6 · |loss| (1e-6 for the recurrent
+archs); a gradient leaf within 1e-5 · max |reference leaf| + 1e-7 (sums of
+up to 2·32·256 terms in another order; measured 1.2e-6); AdamW on the same
+inputs within 1 bfloat16 ulp on the parameters and 1e-6 of each moment
+leaf's largest value (elementwise relative error is ill-defined where
+b1·m + (1−b1)·g cancels).
+
+The recurrent archs' whole-model gradients are held within 1e-4 · max
+|reference leaf| + 1e-7.  Their cells are held at 1e-5 one by one
+(``test_torch_recurrent.py``), but stacked layers of exponential gates
+and max-stabilised normalisers amplify rounding: at these inputs the two
+packages' float32 gradients are 1.4e-5 (zamba2-7b) and 2.8e-5
+(xlstm-350m) of a leaf's largest apart, spread over every leaf, and the
+card's float32 gradients part from the CPU's by as much (3.4e-5, 6.0e-5;
+``chip_smoke.py``'s train parity).
 """
 import dataclasses
 import functools
@@ -35,9 +45,11 @@ from repro_torch.optim.adamw import AdamWState, tree_leaves
 BATCH, SEQ = 2, 32
 LOSS_REL = 2e-6
 GRAD_REL, GRAD_ABS = 1e-5, 1e-7
+RECURRENT_ARCHS = ["zamba2-7b", "xlstm-350m"]
 LOSS_ARCHS = ["qwen3-4b", "granite-moe-3b-a800m", "llava-next-34b",
               "hubert-xlarge"]
-GRAD_ARCHS = ["qwen3-4b", "granite-moe-3b-a800m"]
+GRAD_ARCHS = ["qwen3-4b", "granite-moe-3b-a800m"] + RECURRENT_ARCHS
+RECURRENT_LOSS_REL, RECURRENT_GRAD_REL = 1e-6, 1e-4
 
 
 def seq_len(cfg):
@@ -104,18 +116,27 @@ def test_loss_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", GRAD_ARCHS)
 def test_gradients_match_reference(arch):
+    """Every leaf's gradient, zamba2's one ``shared_attn`` block (the sum
+    over its uses after each unit) and its float32 ``A_log`` / ``D`` /
+    ``dt_bias`` among them; for the recurrent archs the loss too, within
+    1e-6 relative (the reference's loss and gradients are one compile)."""
     m, params, batch = port(arch)
-    _, want = reference_loss_and_grads(arch)
+    want_loss, want = reference_loss_and_grads(arch)
     names = sorted(flat(params))
     leaves = [flat(params)[k] for k in names]
-    grads = torch.autograd.grad(m.loss(params, batch), leaves,
-                                allow_unused=True, materialize_grads=True)
+    loss = m.loss(params, batch)
+    if arch in RECURRENT_ARCHS:     # their loss is held here, one compile
+        assert abs(float(loss.detach()) - want_loss) <= RECURRENT_LOSS_REL * abs(want_loss)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     want = flat(want)
     assert sorted(want) == names
+    rel = RECURRENT_GRAD_REL if arch in RECURRENT_ARCHS else GRAD_REL
     for k, g in zip(names, grads):
         w = want[k]
+        assert g.dtype == flat(params)[k].dtype and w.dtype == g.numpy().dtype
         err = float(np.max(np.abs(numpy(g).astype(np.float64) - w)))
-        lim = GRAD_REL * float(np.max(np.abs(w))) + GRAD_ABS
+        lim = rel * float(np.max(np.abs(w))) + GRAD_ABS
         assert err <= lim, f"{k}: max |Δ| {err} > {lim}"
 
 
@@ -205,38 +226,51 @@ def _bits(t):
     return t.view(torch.int16).numpy().astype(np.int32)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def _leaf_dtypes(dtype):
+    """Each leaf's dtype; ``mixed`` keeps a 1-D leaf float32 in a bfloat16
+    tree, as zamba2-7b keeps ``A_log``, ``D`` and ``dt_bias``."""
+    if dtype == "mixed":
+        return {"a": "bfloat16", "b": {"c": "float32", "d": "bfloat16"}}
+    return {"a": dtype, "b": {"c": dtype, "d": dtype}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
 def test_adamw_update_matches_reference_with_the_clip_active(dtype):
     """Same grads, params and state through both updates, the global-norm
     clip scaling the gradients (norm ≈ 2.4 against 0.5).  In bfloat16 the
     clip's float32 scale must meet float32 gradients: scaling the bfloat16
     gradients themselves moves the moments by ~1e-3 relative."""
     params, grads, mu, nu = _adam_inputs(dtype)
-    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    dts = _leaf_dtypes(dtype)
+
+    def jax_tree(tree):
+        return jax.tree.map(lambda a, d: jnp.asarray(a, getattr(jnp, d)), tree, dts)
+
+    def torch_tree(tree):
+        return jax.tree.map(lambda a, d: torch.from_numpy(np.array(a)).to(
+            getattr(torch, d)), tree, dts)
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1, grad_clip_norm=0.5)
     with jax.enable_x64(False):
         jstate = jadamw.AdamWState(step=jnp.asarray(2, jnp.int32),
                                    mu=jax.tree.map(jnp.asarray, mu),
                                    nu=jax.tree.map(jnp.asarray, nu))
-        jp, js = jadamw.adamw_update(
-            jax.tree.map(lambda a: jnp.asarray(a, jdt), grads), jstate,
-            jax.tree.map(lambda a: jnp.asarray(a, jdt), params),
-            lr=jnp.asarray(3e-3, jnp.float32), **kw)
-        gnorm = float(jnp.sqrt(sum(jnp.sum(jnp.square(jnp.asarray(g, jdt)
-                                                      .astype(jnp.float32)))
-                                   for g in jax.tree.leaves(grads))))
+        jp, js = jadamw.adamw_update(jax_tree(grads), jstate, jax_tree(params),
+                                     lr=jnp.asarray(3e-3, jnp.float32), **kw)
+        gnorm = float(jnp.sqrt(sum(jnp.sum(jnp.square(g.astype(jnp.float32)))
+                                   for g in jax.tree.leaves(jax_tree(grads)))))
     assert gnorm > 4 * kw["grad_clip_norm"]
-    tp, tg = _to_torch(params, tdt), _to_torch(grads, tdt)
+    tp, tg = torch_tree(params), torch_tree(grads)
     state = AdamWState(step=2, mu=_to_torch(mu, torch.float32),
                        nu=_to_torch(nu, torch.float32))
     assert abs(float(adamw.global_norm(tg)) - gnorm) <= 1e-6 * gnorm
     new_p, new_s = adamw.adamw_update(tg, state, tp, lr=3e-3, **kw)
     assert new_s.step == 3 and int(js.step) == 3
     assert new_p is tp and new_s.mu is state.mu     # in place
-    for got, want in zip(tree_leaves(new_p), jax.tree.leaves(jp)):
-        assert got.dtype == tdt
-        if dtype == "bfloat16":
-            want_t = torch.from_numpy(np.array(want.astype(jnp.float32))).to(tdt)
+    for got, want, d in zip(tree_leaves(new_p), jax.tree.leaves(jp),
+                            jax.tree.leaves(dts)):
+        assert got.dtype == getattr(torch, d)
+        if d == "bfloat16":
+            want_t = torch.from_numpy(np.array(want.astype(jnp.float32))).to(got.dtype)
             assert np.abs(_bits(got) - _bits(want_t)).max() <= 1
         else:
             w = np.asarray(want)
