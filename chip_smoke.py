@@ -68,10 +68,12 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 8. the streaming path on the same snapshot: the fields written as ``.npy``
    files into ``build/chip_smoke/npys/``, ``NeurLZ(group_size=1,
    max_resident_bytes=STREAM_BUDGET).compress_to`` of that directory into
-   a container (the three fields' working sets exceed the budget), decoded
-   by ``streaming.iter_decompress`` and one ROI of ``w``; every entry must
-   equal the main path's by SHA-256, every decode its decode, the ROI its
-   slice, the ledger's peak stay within the budget and the ledger evict;
+   a container (the three fields' working sets exceed the budget) at
+   DURABLE_EPOCHS epochs, decoded by ``streaming.iter_decompress`` and one
+   ROI of ``w``; every entry must equal the durable path's serial reference
+   (the main path's configuration at those epochs) by SHA-256, every
+   decode its decode, the ROI its slice, the ledger's peak stay within the
+   budget and the ledger evict;
    it prints the compress and decode times, the writer thread's busy and
    put-wait seconds and the ledger's peak;
 9. the serve path: one ``ArchiveServer`` on the card over the streaming
@@ -116,11 +118,23 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     qwen3-4b and xlstm-350m, and lossy checkpoints through the Lorenzo
     kernels (bound held, card restore equal to the CPU's, one launch per
     lossy leaf) and ``neurlz_grad_archive`` equal on both;
-12. a ``zfplike`` conventional round trip on one full field;
-13. the launch count of every kernel over each path, counted from 0 just
+12. the dist path, the distributed layer over NCCL at world size 1 (NCCL
+    takes one rank a device; the multi-rank checks run on the CPU over
+    gloo): (a) the sharding rules of qwen3-4b, zamba2-7b and
+    deepseek-moe-16b at full width on the 16x16 and 2x16x16 production
+    shapes and the 1x1 host mesh (sharded and replicated leaves, param and
+    AdamW bytes a device); (b) ``reshard_to_mesh`` of qwen3-4b's
+    full-width bf16 params on the 1x1 mesh, bit for bit; (c)
+    ``compressed_psum`` and ``bf16_psum`` of one full-width gradient tree,
+    bit for bit against ``quantize_ef`` / ``bf16(g)``, timed against their
+    bytes-once bounds, with their wire bytes; (d) an elastic drill at the
+    reduced qwen3-4b: save, ``rescale`` onto a fresh 1x1 mesh, state and
+    the next train step bit for bit;
+13. a ``zfplike`` conventional round trip on one full field;
+14. the launch count of every kernel over each path, counted from 0 just
     before the path: each kernel of a path must have launched in it (the
-    lm path launches none, the train path the Lorenzo kernels); and each
-    path's ``torch.cuda.max_memory_allocated``, reset before it.
+    lm and dist paths launch none, the train path the Lorenzo kernels);
+    and each path's ``torch.cuda.max_memory_allocated``, reset before it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
 summed from a torch.profiler trace that must hold every launch of the
@@ -487,11 +501,12 @@ def conv_bwd_phase(dev, report: dict) -> dict:
 
 
 GROUP_F = 3    # fields of the batched path's one group
-# Training cut from the paper's 100 epochs on four paths, so that the run
-# stays inside its time limit on a slower host (the batched path at
-# DURABLE_EPOCHS, held against the durable path's serial reference at the
-# same epochs; 10 until the recurrent families' lm and train rows came); the
-# main and streaming paths train 100.
+# Training cut from the paper's 100 epochs on five paths, so that the run
+# stays inside its time limit on a slower host (the batched and streaming
+# paths at DURABLE_EPOCHS, held against the durable path's serial reference
+# at the same epochs; 10 until the recurrent families' lm and train rows
+# came; the streaming path at 100 until the dist phase came, when one run
+# took 1,181 s of the 1,200); the main path trains 100.
 LORENZO_EPOCHS = 5
 DURABLE_EPOCHS = 5
 
@@ -748,7 +763,8 @@ def _bits_equal(a, b) -> bool:
     import torch
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    view = {torch.float64: torch.int64, torch.float32: torch.int32}.get(a.dtype)
+    view = {torch.float64: torch.int64, torch.float32: torch.int32,
+            torch.bfloat16: torch.int16, torch.float16: torch.int16}.get(a.dtype)
     return bool(torch.equal(a.view(view), b.view(view)) if view else torch.equal(a, b))
 
 
@@ -1351,13 +1367,17 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict
     # What the serial engine writes for the three fields at these epochs,
     # without telemetry or faults: each field's entry depends on that field
     # alone (its own bound, conventional payload and fresh generator).
+    t_ref = time.perf_counter()
     ref_sess = repro_torch.NeurLZ(epochs=epochs, device=dev)
     ref_arc = ref_sess.compress(fields, rel_eb=1e-3)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t_ref
     ref_dec = ref_sess.decompress(ref_arc)
     reference = {n: (arc_io.dumps(ref_arc["fields"][n]), ref_dec[n])
                  for n in fields}
-    serial = {"epochs": epochs,
+    serial = {"epochs": epochs, "compress_s": t_ref,
               "entries": {n: reference[n][0] for n in fields},
+              "decoded": {n: reference[n][1] for n in fields},
               "per_field": {n: {"psnr_enhanced": metrics.psnr(x, ref_dec[n]),
                                 "bitrate": ref_arc.bitrate(n)["bitrate"],
                                 "final_loss": ref_arc["fields"][n][
@@ -1593,17 +1613,18 @@ STREAM_BUDGET = 900_000_000   # bytes: 2.25 of one field's working set
 STREAM_ROI = (slice(10, 20), slice(None), slice(100, 300))
 
 
-def streaming_path(dev, fields, epochs: int, main: dict, report: dict
+def streaming_path(dev, fields, epochs: int, serial: dict, report: dict
                    ) -> tuple[dict, Path]:
     """``NeurLZ(group_size=1, max_resident_bytes=STREAM_BUDGET).compress_to``
     of the snapshot written as ``.npy`` files (an ``NpyDirSource``) into a
     container, decoded by ``iter_decompress`` and one ROI.  One field's
     working set on the residency ledger is x 100 MB + rec 100 MB + dataset
     200 MB: the three fields' 1.2 GB exceed the budget, so the pipeline
-    must evict.  ``main`` is what :func:`main_path` kept: every entry must
-    equal its entry by SHA-256, every decode its decode.  Returns
-    ``(launches, path)``, ``path`` the container, which the serve path
-    serves."""
+    must evict.  ``serial`` is the serial engine's archive at ``epochs``
+    (:func:`durable_path`'s reference, the main path's configuration):
+    every entry must equal its entry by SHA-256, every decode its decode.
+    Returns ``(launches, path)``, ``path`` the container, which the serve
+    path serves."""
     import hashlib
     import numpy as np
     import torch
@@ -1657,17 +1678,17 @@ def streaming_path(dev, fields, epochs: int, main: dict, report: dict
     for name, x in fields.items():
         e = arc.entry(name)
         sha = hashlib.sha256(arc_io.dumps(e)).hexdigest()
-        main_sha = hashlib.sha256(main["entries"][name]).hexdigest()
-        check(sha == main_sha, f"{name}: entry differs from the main path's")
-        check(decoded[name].tobytes() == main["decoded"][name].tobytes(),
-              f"{name}: decode differs from the main path's")
+        serial_sha = hashlib.sha256(serial["entries"][name]).hexdigest()
+        check(sha == serial_sha, f"{name}: entry differs from the serial engine's")
+        check(decoded[name].tobytes() == serial["decoded"][name].tobytes(),
+              f"{name}: decode differs from the serial engine's")
         chk = regulation.check_bound(x, decoded[name], e["abs_eb"], "strict")
         check(chk["ok"], f"{name}: max error {chk['max_abs_err']} > "
                          f"{e['abs_eb']}")
         per_field[name] = {"entry_sha256": sha,
                            "max_err_over_eb": chk["max_abs_err"] / e["abs_eb"]}
-    check(roi.tobytes() == main["decoded"]["w"][STREAM_ROI].tobytes(),
-          "the ROI decode differs from the main path's slice")
+    check(roi.tobytes() == serial["decoded"]["w"][STREAM_ROI].tobytes(),
+          "the ROI decode differs from the serial engine's slice")
     arc.close()
     writer = {k: rep[k] for k in ("writer_busy_s", "writer_put_wait_s",
                                   "writer_close_wait_s", "bytes_written")}
@@ -1678,14 +1699,13 @@ def streaming_path(dev, fields, epochs: int, main: dict, report: dict
            "compress_s": t_compress, "decode_s": t_decode, "roi_s": t_roi,
            "compress_MB_per_s": raw_mb / t_compress,
            "decode_MB_per_s": raw_mb / t_decode,
-           "main_compress_s": main["compress_s"],
+           "serial_compress_s": serial["compress_s"],
            "stages": {k: rep[k] for k in ("total_s", "conv_s", "train_s",
                                           "conv_stage", "spans")},
            "device_peak_bytes_compress": compress_peak,
            "device_peak_bytes": device_peak,
-           "main_device_peak_bytes": main["device_peak_bytes"],
            "per_field": per_field, "launches": launches,
-           "entries_equal_main": True}
+           "entries_equal_serial": True}
     print("streaming_path", json.dumps({k: v for k, v in out.items()
                                         if k != "per_field"}))
     report["streaming_path"] = out
@@ -1696,7 +1716,7 @@ SERVE_MAX_BYTES = 250_000_000   # holds two of the 100 MB decoded fields
 SERVE_EPOCHS = 5                # the transcode's training, as the durable path
 
 
-def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
+def serve_path(dev, epochs: int, serial: dict, lorenzo: dict,
                container: Path, report: dict) -> dict:
     """The serving tier: one ``ArchiveServer`` on the card over the
     streaming path's container (``interp``) and the Lorenzo path's archive
@@ -1706,8 +1726,8 @@ def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
     ``lorenzo3d_inv`` launch) of six archives, every result equal to its
     path's decode bit for bit; then a hot hit that reads no entry, a ROI,
     an injected fault that fails one request only, the ledger within its
-    ceiling after every phase and evicting.  Then ``transcode`` of the main
-    path's ``w`` entry to ``rel=1e-2`` under its own ledger: its entry must
+    ceiling after every phase and evicting.  Then ``transcode`` of the
+    served ``w`` entry to ``rel=1e-2`` under its own ledger: its entry must
     equal, by SHA-256, ``NeurLZ.compress`` of the served ``w`` at the same
     bound and epochs, and hold the new bound.  Counts are read after the
     transcode, before that reference compress."""
@@ -1724,7 +1744,7 @@ def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
         if not ok:
             raise AssertionError(f"serve path: {what}")
 
-    want = {("interp", n): main["decoded"][n] for n in main["decoded"]}
+    want = {("interp", n): serial["decoded"][n] for n in serial["decoded"]}
     want.update({("lorenzo", n): a for n, a in lorenzo["decoded"].items()})
     tel = repro_torch.Telemetry(
         repro_torch.TelemetryConfig(learning_traces=False))
@@ -1789,12 +1809,12 @@ def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
     roi = srv.decode("w", archive_id="interp", roi=STREAM_ROI)
     torch.cuda.synchronize()
     t_roi = time.perf_counter() - t0
-    check(roi.tobytes() == main["decoded"]["w"][STREAM_ROI].tobytes(),
-          "the ROI differs from the main path's slice")
+    check(roi.tobytes() == serial["decoded"]["w"][STREAM_ROI].tobytes(),
+          "the ROI differs from the serial engine's slice")
     ledger_ok("roi")
 
     # Fault: an uncached field's request fails, the next one is served.
-    cold = next(n for n in main["decoded"]
+    cold = next(n for n in serial["decoded"]
                 if ("interp", n, None) not in srv.cache)
     srv.faults = repro_torch.FaultConfig(
         injector=repro_torch.FaultInjector({"serve.request": 0}))
@@ -1819,7 +1839,7 @@ def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
     check(ledger.current == 0, "the closed server left bytes charged")
 
     # Transcode w from an archive dict of its entry.
-    w_entry = arc_io.loads(main["entries"]["w"])
+    w_entry = arc_io.loads(serial["entries"]["w"])
     src = {"kind": "neurlz", "fields": {"w": w_entry}, "slice_axis": 0,
            "compressor": "szlike"}
     bounds = {"w": repro_torch.ErrorBound(rel=1e-2)}
@@ -1844,12 +1864,12 @@ def serve_path(dev, epochs: int, main: dict, lorenzo: dict,
     check(chk["ok"], f"transcoded w: max error {chk['max_abs_err']} > "
                      f"{e['abs_eb']}")
     t0 = time.perf_counter()
-    serial = repro_torch.NeurLZ(epochs=epochs, device=dev).compress(
+    recompressed = repro_torch.NeurLZ(epochs=epochs, device=dev).compress(
         {"w": served_w}, bounds)
     torch.cuda.synchronize()
     t_serial = time.perf_counter() - t0
     sha = hashlib.sha256(arc_io.dumps(e)).hexdigest()
-    check(sha == hashlib.sha256(arc_io.dumps(serial["fields"]["w"])).hexdigest(),
+    check(sha == hashlib.sha256(arc_io.dumps(recompressed["fields"]["w"])).hexdigest(),
           "the transcoded entry differs from the serial recompress")
     recoded.close()
 
@@ -2573,6 +2593,327 @@ def train_path(dev, report: dict) -> dict:
     return launches
 
 
+DIST_ARCHS = ("qwen3-4b", "zamba2-7b", "deepseek-moe-16b")   # rules at full width
+DIST_BATCH = 4            # the lm path's batch, at its length LM_PROMPT + LM_GEN
+
+
+def _spec_shards(spec, sizes: dict) -> int:
+    """How many pieces a spec cuts a leaf into on a mesh of ``sizes``."""
+    n = 1
+    for ax in spec:
+        for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
+            n *= sizes[a]
+    return n
+
+
+def _dist_rules(host_mesh) -> dict:
+    """(a) The sharding rules at full width: each DIST_ARCHS model's param,
+    optimizer, cache (batch DIST_BATCH, LM_PROMPT + LM_GEN) and input specs
+    on the 16x16 and 2x16x16 production shapes and on the 1x1 NCCL host
+    mesh: sharded and replicated leaves, and the param and optimizer bytes
+    a device holds under each."""
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves
+
+    meshes = {"16x16": mesh_lib.make_production_mesh(),
+              "2x16x16": mesh_lib.make_production_mesh(multi_pod=True),
+              "host 1x1": host_mesh}
+    max_len = LM_PROMPT + LM_GEN
+    out = {}
+    for arch in DIST_ARCHS:
+        cfg = configs.get_config(arch)
+        model = M.build_model(cfg, model_axis=16)
+        params = M.abstract_params(model)
+        opt = M.abstract_opt_state(params)
+        cache = M.abstract_cache(model, DIST_BATCH, max_len)
+        inputs = M.input_specs(cfg, ShapeConfig("lm", max_len, DIST_BATCH, "prefill"))
+        p_leaves = tree_leaves(params)
+        row = {"params": sum(p.numel() for p in p_leaves)}
+        for name, mesh in meshes.items():
+            sizes = sh.mesh_sizes(mesh)
+            pspecs = tree_leaves(sh.param_pspecs(params, mesh))
+            ospecs = sh.opt_pspecs(sh.param_pspecs(params, mesh))
+            cspecs = tree_leaves(sh.cache_pspecs(cache, mesh, DIST_BATCH))
+            ispecs = sh.input_pspecs(inputs, mesh)
+            cut = [_spec_shards(s, sizes) for s in pspecs]
+            p_bytes = sum(p.numel() * p.element_size() / c for p, c in zip(p_leaves, cut))
+            o_bytes = sum(2 * 4 * p.numel() / c for p, c in zip(p_leaves, cut)) + 4
+            row[name] = {
+                "param_leaves_sharded": sum(c > 1 for c in cut),
+                "param_leaves_replicated": sum(c == 1 for c in cut),
+                "opt_leaves": len(tree_leaves(ospecs.mu)) * 2 + 1,
+                "cache_leaves_sharded": sum(_spec_shards(s, sizes) > 1 for s in cspecs),
+                "cache_leaves": len(cspecs),
+                "input_specs": {k: repr(v) for k, v in ispecs.items()},
+                "param_bytes_per_device": p_bytes,
+                "opt_bytes_per_device": o_bytes}
+        out[arch] = row
+        for name in meshes:
+            r = row[name]
+            print(f"dist rules {arch} on {name}: params "
+                  f"{r['param_leaves_sharded']} sharded / "
+                  f"{r['param_leaves_replicated']} replicated leaves, "
+                  f"{r['param_bytes_per_device'] / 1e9:.4f} GB params and "
+                  f"{r['opt_bytes_per_device'] / 1e9:.4f} GB AdamW a device; "
+                  f"cache {r['cache_leaves_sharded']}/{r['cache_leaves']} leaves "
+                  f"sharded; inputs {r['input_specs']}", flush=True)
+    return out
+
+
+def _dist_full_width(dev, host_mesh, check) -> dict:
+    """(b) ``reshard_to_mesh`` of qwen3-4b's full-width bf16 params on the
+    1x1 NCCL mesh, every local shard its source bit for bit; (c)
+    ``compressed_psum`` and ``bf16_psum`` of one full-width gradient tree
+    (one forward and backward at TRAIN_BATCH x TRAIN_SEQ) over the NCCL
+    group of one rank: the mean equal to ``dequantize(quantize_ef(g))`` at
+    the shared scale and the carry to ``g - mean * n``, bit for bit, leaf by
+    leaf; ``bf16_psum`` equal to ``bf16(g).float()``; each traced
+    (``device_time``: device ms and activities a call), then timed on the
+    host clock against its bytes-once bound, with the wire bytes it
+    reports."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed import elastic
+    from repro_torch.models import model as M
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.optim.adamw import tree_items, tree_leaves, tree_unflatten
+
+    cfg = configs.get_config("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    model = M.build_model(cfg, model_axis=1)
+    params = M.init_params(model, seed=0, device=dev)
+    out = {"arch": cfg.name, "n_params": sum(p.numel() for p in tree_leaves(params))}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        placed = elastic.reshard_to_mesh(params, host_mesh)
+    torch.cuda.synchronize()
+    out["reshard_s"] = time.perf_counter() - t0
+    src = dict(tree_items(params))
+    bad = [k for k, d in tree_items(placed) if not _bits_equal(d.to_local(), src[k])]
+    out["reshard_leaves"] = len(src)
+    out["reshard_bad"] = ["/".join(k) for k in bad]
+    check(not bad, f"reshard_to_mesh changed {out['reshard_bad'][:5]}")
+    del placed, src
+
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batch = {"tokens": torch.from_numpy(stream.next_batch()).to(dev)}
+    leaves = tree_leaves(params)
+    loss = model.loss(params, batch, remat_policy="nothing")
+    grads = tree_unflatten(params, [g.detach() for g in torch.autograd.grad(loss, leaves)])
+    out["loss"] = float(loss.detach())
+    del loss, leaves, params, model
+    _lm_free()
+    values = sum(g.numel() for g in tree_leaves(grads))
+    n_leaves = len(tree_leaves(grads))
+
+    def device_time(name, fn, iters: int = 2):
+        """Device time and activities per call from a device-only trace of
+        ``iters`` calls after a warm one (results dropped), taken again
+        while it holds no activity or not a multiple of ``iters`` (a short
+        trace can lose its activity), at most TRACE_TRIES times."""
+        fn()
+        _lm_free()
+
+        def calls():
+            for _ in range(iters):
+                fn()
+        for attempt in range(1, TRACE_TRIES + 1):
+            events = device_events(traced(calls, cpu=False))
+            if events and len(events) % iters == 0:
+                break
+            RETRACED[name] = attempt + 1
+        check(bool(events) and len(events) % iters == 0,
+              f"{name}: {TRACE_TRIES} traces without its device activity")
+        out[f"{name}_device_ms"] = (sum(e.time_range.elapsed_us() for e in events)
+                                    / 1e3 / iters)
+        out[f"{name}_device_kernels"] = len(events) // iters
+        _lm_free()
+
+    device_time("compressed_psum", lambda: gc.compressed_psum(grads, None))
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, ef = gc.compressed_psum(grads, None, stats=stats)
+    torch.cuda.synchronize()
+    out["compressed_psum_ms"] = (time.perf_counter() - t0) * 1e3
+    out["compressed_wire_bytes"] = stats["wire_bytes"]
+    worst_scale, mismatched = 0.0, []
+    for path, g in tree_items(grads):
+        m, e = mean, ef
+        for k in path[:-1]:
+            m, e = m[k], e[k]
+        q, s, _ = gc.quantize_ef(g, torch.zeros((), device=dev))
+        ok = (_bits_equal(m[path[-1]], q.float() * s)
+              and _bits_equal(e[path[-1]], g.float() - m[path[-1]] * 1))
+        if not ok:
+            mismatched.append("/".join(path))
+        worst_scale = max(worst_scale, float(s))
+        del q, s, m[path[-1]], e[path[-1]]
+    out["compressed_mismatched"] = mismatched
+    out["largest_scale"] = worst_scale
+    check(not mismatched, f"compressed_psum differs from quantize_ef: {mismatched[:5]}")
+    del mean, ef
+    _lm_free()
+
+    device_time("bf16_psum", lambda: gc.bf16_psum(grads))
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summed = gc.bf16_psum(grads, stats=stats)
+    torch.cuda.synchronize()
+    out["bf16_psum_ms"] = (time.perf_counter() - t0) * 1e3
+    out["bf16_wire_bytes"] = stats["wire_bytes"]
+    summed = dict(tree_items(summed))
+    bad = ["/".join(k) for k, g in tree_items(grads)
+           if not _bits_equal(summed[k], g.to(torch.bfloat16).float())]
+    check(not bad, f"bf16_psum differs from bf16(g): {bad[:5]}")
+    del summed
+    out["f32_wire_bytes"] = 4 * values
+    out["values"], out["leaves"] = values, n_leaves
+    g_bytes = sum(g.numel() * g.element_size() for g in tree_leaves(grads))
+    # Bytes once: the gradient read, the float32 mean and carry written;
+    # bf16_psum: the gradient read, the float32 sum written.
+    out["compressed_bound_ms"] = (g_bytes + 8 * values) / HBM_BYTES_PER_S * 1e3
+    out["bf16_bound_ms"] = (g_bytes + 4 * values) / HBM_BYTES_PER_S * 1e3
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del grads
+    _lm_free()
+    return out
+
+
+def _dist_elastic(dev, check) -> dict:
+    """(d) The elastic drill on the card at the reduced qwen3-4b (a
+    full-width checkpoint is 40 GB through the host codec): the state after
+    one step placed on a 1x1 mesh and saved, ``rescale``'d onto a fresh 1x1
+    mesh, params and moments equal bit for bit, and one train step from the
+    rescaled state equal byte for byte to one from the saved state."""
+    import shutil
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import elastic
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_items, tree_map
+
+    root = ROOT / "build" / "chip_smoke" / "dist_ckpt"
+    if root.exists():
+        shutil.rmtree(root)
+    cfg = configs.get_reduced("qwen3-4b")
+    batches = [M.demo_batch(cfg, 8, 64, seed=s, device=dev) for s in (5, 6)]
+
+    def fresh():
+        model = M.build_model(cfg, model_axis=1)
+        return model, M.make_train_step(model, lr=3e-3)
+
+    model, step = fresh()
+    params, opt = M.init_train_state(model, seed=0, device=dev)
+    params, opt, _ = step(params, opt, batches[0], 0)
+    saved_p = tree_map(lambda t: t.detach().clone(), params)
+    saved_o = type(opt)(step=opt.step, mu=tree_map(torch.clone, opt.mu),
+                        nu=tree_map(torch.clone, opt.nu))
+    t0 = time.perf_counter()
+    host = make_host_mesh(dev)
+    placed = elastic.reshard_to_mesh(saved_p, host)
+    mgr = CheckpointManager(str(root), device=dev)
+    mgr.save(1, placed, type(opt)(step=opt.step, mu=elastic.reshard_to_mesh(opt.mu, host),
+                                  nu=elastic.reshard_to_mesh(opt.nu, host)))
+    new_p, new_o, meta = elastic.rescale(mgr, 1, saved_p, saved_o, make_host_mesh(dev))
+    torch.cuda.synchronize()
+    out = {"save_rescale_s": time.perf_counter() - t0, "step": new_o.step}
+    same = all(_bits_equal(d.to_local(), saved) for tr, ref in
+               ((new_p, saved_p), (new_o.mu, saved_o.mu), (new_o.nu, saved_o.nu))
+               for (_, d), (_, saved) in zip(tree_items(tr), tree_items(ref)))
+    out["state_bit_equal"] = same
+    check(same and new_o.step == saved_o.step == meta["step"],
+          "rescale changed the params or moments")
+
+    def one_step(p, o):
+        model, step_fn = fresh()
+        p = model.load_params(tree_map(lambda t: t.detach().clone(), p))
+        o = type(o)(step=o.step, mu=tree_map(torch.clone, o.mu),
+                    nu=tree_map(torch.clone, o.nu))
+        p, o, _ = step_fn(p, o, batches[1], o.step)
+        return p, o
+
+    local = lambda tr: tree_map(lambda d: d.to_local(), tr)  # noqa: E731
+    a_p, a_o = one_step(local(new_p), type(new_o)(step=new_o.step, mu=local(new_o.mu),
+                                                  nu=local(new_o.nu)))
+    b_p, b_o = one_step(saved_p, saved_o)
+    equal = all(_bits_equal(x.detach(), y.detach()) for tr_a, tr_b in
+                ((a_p, b_p), (a_o.mu, b_o.mu), (a_o.nu, b_o.nu))
+                for (_, x), (_, y) in zip(tree_items(tr_a), tree_items(tr_b)))
+    out["step_bit_equal"] = equal
+    check(equal, "a train step from the rescaled state differs from the saved state's")
+    return out
+
+
+def dist_path(dev, report: dict) -> dict:
+    """The distributed layer on the card over NCCL (one rank: NCCL takes
+    one rank a device; the multi-rank checks run on the CPU over gloo in
+    ``tests/test_torch_distributed.py``): (a) ``_dist_rules``, (b) and (c)
+    ``_dist_full_width``, (d) ``_dist_elastic``.  No kernel of the port."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch import mesh as mesh_lib
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"dist path: {what}")
+
+    t_path = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_lib.init_world(dev)
+    try:
+        backend = str(dist.get_backend())
+        check(backend == "nccl", f"the process group runs {backend}, not nccl")
+        host = mesh_lib.make_host_mesh(dev)
+        check(host.device_type == "cuda" and tuple(host.shape) == (1, 1),
+              f"host mesh {host}")
+        out = {"backend": backend, "world_size": dist.get_world_size()}
+        t = time.perf_counter()
+        out["rules"] = _dist_rules(host)
+        out["rules_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["full_width"] = _dist_full_width(dev, host, check)
+        out["full_width_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["elastic"] = _dist_elastic(dev, check)
+        out["elastic_s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    fw = out["full_width"]
+    print(f"dist qwen3-4b full width over {backend} (world 1): reshard "
+          f"{fw['reshard_leaves']} leaves in {fw['reshard_s']:.3f} s, bit equal; "
+          f"compressed_psum {fw['compressed_psum_ms']:.2f} ms (device "
+          f"{fw['compressed_psum_device_ms']:.2f} ms in "
+          f"{fw['compressed_psum_device_kernels']} kernels; bound "
+          f"{fw['compressed_bound_ms']:.2f} ms), wire {fw['compressed_wire_bytes']:,} B "
+          f"int32; bf16_psum {fw['bf16_psum_ms']:.2f} ms (device "
+          f"{fw['bf16_psum_device_ms']:.2f} ms in {fw['bf16_psum_device_kernels']} "
+          f"kernels; bound {fw['bf16_bound_ms']:.2f} ms), wire "
+          f"{fw['bf16_wire_bytes']:,} B; "
+          f"f32 {fw['f32_wire_bytes']:,} B; peak {fw['max_memory_allocated']:,} B",
+          flush=True)
+    launches = kernels.launch_counts()
+    out["launches"] = launches
+    out["device_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_path
+    print("dist_path", json.dumps(out, default=str))
+    report["dist_path"] = out
+    return launches
+
+
 def zfplike_round_trip(dev, x, report: dict) -> None:
     """The ``zfplike`` conventional stage on one full field: the bound
     holds and decode equals the encoder's reconstruction."""
@@ -2677,13 +3018,18 @@ def main() -> int:
                "durable": durable_launches,
                "batched": timed("batched", batched_path, dev, fields, cut,
                                 main_kept, serial_cut, report)}
+    # The streaming path trains at the durable path's epochs (cut from the
+    # paper's 100 to keep the run inside its limit), held against that
+    # path's serial reference; the serve path serves its container.
     by_path["streaming"], container = timed(
-        "streaming", streaming_path, dev, fields, args.epochs, main_kept, report)
+        "streaming", streaming_path, dev, fields, cut, serial_cut, report)
     by_path["serve"] = timed("serve", serve_path, dev, min(args.epochs, SERVE_EPOCHS),
-                             main_kept, lorenzo_kept, container, report)
+                             serial_cut, lorenzo_kept, container, report)
     by_path["lm"] = timed("lm", lm_path, dev, report)
     _lm_free()
     by_path["train"] = timed("train", train_path, dev, report)
+    _lm_free()
+    by_path["dist"] = timed("dist", dist_path, dev, report)
     single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
     path_kernels = {"main": single,
                     "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),
@@ -2694,7 +3040,8 @@ def main() -> int:
                     "serve": single + ("lorenzo3d_inv",),
                     "lm": (),   # the LM has no Pallas kernel, so none here
                     # the lossy checkpoints' and the gradient archive's
-                    "train": ("lorenzo3d_fwd", "lorenzo3d_inv")}
+                    "train": ("lorenzo3d_fwd", "lorenzo3d_inv"),
+                    "dist": ()}   # the quantize and all-reduce: PyTorch, NCCL
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")

@@ -59,9 +59,12 @@ def _walk(tree, prefix=()):
 
 
 def _host(leaf):
-    """A leaf on the host: a CPU tensor for tensors, else a numpy array (an
-    int step as the JAX package's int32 scalar)."""
+    """A leaf on the host: a CPU tensor for tensors (a DTensor gathered to
+    its full tensor), else a numpy array (an int step as the JAX package's
+    int32 scalar)."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):      # a DTensor: mesh-agnostic file
+            leaf = leaf.full_tensor()
         return leaf.detach().cpu().contiguous()
     if isinstance(leaf, (bool, int)) and not isinstance(leaf, np.generic):
         return np.asarray(leaf, dtype=np.int32)
@@ -134,22 +137,25 @@ def _unpack_arrays(data: bytes, device=None) -> dict:
     return out
 
 
-def _unflatten_into(template, flat: dict, device):
+def _unflatten_into(template, flat: dict, device, path: tuple = ()):
     """A tree shaped like ``template`` from ``flat``: each leaf in the
-    template's dtype and shape, on ``device`` (an int leaf as an int)."""
-    def build(t, path):
-        if isinstance(t, dict):
-            return {k: build(t[k], path + (str(k),)) for k in t}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(build(getattr(t, n), path + (f".{n}",))
-                             for n in t._fields))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v, path + (str(i),)) for i, v in enumerate(t))
-        arr = flat["/".join(path)]
-        if isinstance(t, torch.Tensor):
-            return arr.to(t.dtype).reshape(t.shape).to(device)
-        return int(arr.item())
-    return build(template, ())
+    template's dtype and shape, on ``device`` (an int leaf as an int).
+    Module-level recursion, not a closure: a recursive closure is a
+    reference cycle that would hold ``flat`` until the cyclic collector
+    runs."""
+    t = template
+    if isinstance(t, dict):
+        return {k: _unflatten_into(t[k], flat, device, path + (str(k),)) for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_unflatten_into(getattr(t, n), flat, device, path + (f".{n}",))
+                         for n in t._fields))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten_into(v, flat, device, path + (str(i),))
+                       for i, v in enumerate(t))
+    arr = flat["/".join(path)]
+    if isinstance(t, torch.Tensor):
+        return arr.to(t.dtype).reshape(t.shape).to(device)
+    return int(arr.item())
 
 
 class CheckpointManager:

@@ -4,8 +4,9 @@ Every compressed blob of an archive (entropy-coded code streams, escape
 masks, enhancer weights, outlier coordinates) goes through this module.  The
 codec name travels in the blob header (``"codec"``), so either side decodes
 whatever the other wrote; a blob without the key is a legacy zstd blob.
-Resolution order: explicit argument > ``$REPRO_CODEC`` > zstd if it imports,
-else zlib — the same order as the JAX package, so both write the same bytes.
+Resolution order: explicit argument > :func:`set_default_codec` >
+``$REPRO_CODEC`` > zstd if it imports, else zlib — the same order as the JAX
+package, so both write the same bytes.
 """
 from __future__ import annotations
 
@@ -19,9 +20,24 @@ except ImportError:  # the zlib path is the normal one where the wheel is absent
 
 HAVE_ZSTD = _zstd is not None
 
+# The process-wide override of set_default_codec (None: none).
+_override: str | None = None
+
+
+def available_codecs() -> tuple[str, ...]:
+    return ("zstd", "zlib") if HAVE_ZSTD else ("zlib",)
+
+
+def set_default_codec(name: str | None) -> None:
+    """Force a codec process-wide (``None`` restores auto-selection)."""
+    global _override
+    if name is not None:
+        _check(name)
+    _override = name
+
 
 def default_codec() -> str:
-    name = os.environ.get("REPRO_CODEC")
+    name = _override or os.environ.get("REPRO_CODEC")
     if name:
         _check(name)
         return name

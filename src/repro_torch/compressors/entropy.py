@@ -48,3 +48,13 @@ def encode_floats(values: np.ndarray, level: int = _LEVEL) -> dict:
 def decode_floats(blob: dict) -> np.ndarray:
     raw = codec.decompress(blob["payload"], blob.get("codec", "zstd"))
     return np.frombuffer(raw, dtype=blob["dtype"]).reshape(blob["shape"]).copy()
+
+
+def first_order_entropy_bits(codes: np.ndarray) -> float:
+    """Idealized total bits for the code stream under an order-0 model."""
+    codes = np.asarray(codes).ravel()
+    if codes.size == 0:
+        return 0.0
+    _, counts = np.unique(codes, return_counts=True)
+    p = counts / codes.size
+    return float(-(p * np.log2(p)).sum() * codes.size)

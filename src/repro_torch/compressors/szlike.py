@@ -540,6 +540,37 @@ def decompress_batched(arcs: list, device=None) -> list:
     return [o.astype(np.dtype(a0["dtype"]), copy=False) for o in out]
 
 
+# ---------------------------------------------------------------------------
+# N-D Lorenzo (dual-quantization) delta
+# ---------------------------------------------------------------------------
+
+def lorenzo_delta(q: torch.Tensor, axes=None) -> torch.Tensor:
+    """N-D first-order Lorenzo delta of an integer lattice (zero boundary):
+    first differences along every axis of ``axes`` (all unless given; the
+    batched stage passes ``range(1, ndim)`` to leave a field axis alone),
+    inverted exactly by :func:`lorenzo_undelta`.  Plain tensor ops on any
+    device; the 3-D stage's kernel is ``kernels.lorenzo3d``."""
+    d = q
+    for axis in (range(q.ndim) if axes is None else axes):
+        n = q.shape[axis]
+        if n == 1:
+            continue
+        shifted = torch.cat([torch.zeros_like(d.narrow(axis, 0, 1)),
+                             d.narrow(axis, 0, n - 1)], dim=axis)
+        d = d - shifted
+    return d
+
+
+def lorenzo_undelta(d: torch.Tensor, axes=None) -> torch.Tensor:
+    """Inclusive prefix sums along ``axes`` in the lattice's integer type."""
+    q = d
+    for axis in (range(d.ndim) if axes is None else axes):
+        if d.shape[axis] == 1:
+            continue
+        q = torch.cumsum(q, dim=axis, dtype=q.dtype)
+    return q
+
+
 def archive_nbytes(arc: dict) -> int:
     """Archive size in bytes: payloads plus a small header estimate."""
     n = 64

@@ -1,5 +1,5 @@
 """The batched engine (``engine="batched"``): the JAX package's
-``repro/core/batched_engine.py`` on one CUDA device.
+``repro/core/batched_engine.py`` on the CUDA devices.
 
 The serial engine trains one field at a time.  This engine plans the
 snapshot's fields into **groups** of one slice geometry, channel count and
@@ -32,11 +32,20 @@ The conventional stage runs lazily, group by group, when ``prefetch`` is
 on and no field takes another as an aux channel; a group is finalized
 (waited for, enhanced, packed) once the next one has been dispatched.  A
 field whose enhancer fails degrades to the serial engine's conv-only entry,
-with its reason.  ``field_shard`` spreads groups over devices in the JAX
-package; a session here has one device, so it changes nothing.
+with its reason.
+
+``field_shard`` spreads the work over devices, as the JAX package does:
+with several devices the conventional stage runs on the last one
+(``prefetch`` on), and unrolled groups go round-robin over the others
+(:func:`training_devices`, :func:`group_device`); a stacked group is
+split over a ``field`` mesh (``distributed.sharding.field_mesh``), one
+shard of its fields a rank, where the process group holds one rank a
+device.  On one device nothing moves, and the archives are the same bytes
+either way.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import traceback
@@ -48,6 +57,7 @@ import torch
 from .. import device as device_lib
 from .. import faults as faults_lib
 from ..compressors import outliers as outlier_codec
+from ..distributed import sharding as shardlib
 from ..obs import telemetry as obs_lib
 from . import bounds as bounds_lib
 from . import conv_stage as conv_stage_lib
@@ -201,6 +211,7 @@ class _GroupState:
     trained: list = dataclasses.field(default_factory=list)  # field indices
     losses: torch.Tensor | None = None    # [epochs, len(trained)], device
     resids: list = dataclasses.field(default_factory=list)   # per trained
+    device: torch.device | None = None    # where the group trains
 
 
 def _prepare_group(group: FieldGroup, fields, recs, ebs, config, tcfg,
@@ -229,12 +240,15 @@ def _prepare_group(group: FieldGroup, fields, recs, ebs, config, tcfg,
     return _GroupState(group=group, config=config, net_cfg=net_cfg,
                        inputs=inputs, targets=targets, stats=stats,
                        params=params,
-                       schedules=[batch_schedules.get(n) for n in group.names])
+                       schedules=[batch_schedules.get(n) for n in group.names],
+                       device=torch.device(device))
 
 
-def _dispatch_group(state: _GroupState, config, tcfg, device, fc) -> None:
+def _dispatch_group(state: _GroupState, config, tcfg, device, fc,
+                    mesh=None) -> None:
     """Train the group by its strategy and queue each trained field's
-    inference behind it; no wait for the device."""
+    inference behind it; no wait for the device.  ``mesh``: the field
+    mesh a stacked group is split over, or None."""
     names = state.group.names
     for f, name in enumerate(names):
         try:
@@ -261,7 +275,7 @@ def _dispatch_group(state: _GroupState, config, tcfg, device, fc) -> None:
     for fs in units:
         try:
             if strategy == "vmap":
-                hist = _train_stacked(state, fs, tcfg, device)
+                hist = _train_stacked(state, fs, tcfg, device, mesh)
             else:
                 hist = _train_unrolled(state, fs[0], tcfg, device)[:, None]
             resids = []
@@ -298,11 +312,13 @@ def _train_unrolled(state: _GroupState, f: int, tcfg, device) -> torch.Tensor:
     return hist
 
 
-def _train_stacked(state: _GroupState, fs: list, tcfg, device
+def _train_stacked(state: _GroupState, fs: list, tcfg, device, mesh=None
                    ) -> torch.Tensor:
     """``vmap``: fields ``fs`` stacked, padded to their largest slice
     count, one shared batch order; their per-epoch losses ``[epochs, F]``
-    on the device."""
+    on the device.  Over a field ``mesh`` each rank trains its shard of the
+    fields (all of them where their count does not divide the mesh), and
+    the weights and losses are gathered after."""
     n_max = max(int(state.inputs[f].shape[0]) for f in fs)
 
     def pad(a):
@@ -317,17 +333,44 @@ def _train_stacked(state: _GroupState, fs: list, tcfg, device
         raise ValueError("a stacked group shares one batch order: give its "
                          "fields one batch schedule")
     stacked = skipping_dnn.stack_params([state.params[f] for f in fs])
+    n_valid = [int(state.inputs[f].shape[0]) for f in fs]
+    if mesh is not None:
+        xs, ys, stacked = (_local(shardlib.shard_fields(t, mesh))
+                           for t in (xs, ys, stacked))
+        lo = (mesh.get_local_rank(shardlib.FIELD_AXIS) * xs.shape[0]
+              if xs.shape[0] < len(fs) else 0)
+        n_valid = n_valid[lo:lo + xs.shape[0]]
     for v in skipping_dnn.tree_leaves(stacked):
         v.requires_grad_()
     hist = online_trainer.train_stacked(
-        stacked, xs, ys, tcfg,
-        n_valid=[int(state.inputs[f].shape[0]) for f in fs],
+        stacked, xs, ys, tcfg, n_valid=n_valid,
         regulated=state.net_cfg.regulated, skip=state.net_cfg.skip,
         schedule=scheds[0])
+    if mesh is not None:
+        stacked = {n: {k: _gather(v.detach(), mesh, len(fs), 0)
+                       for k, v in p.items()} for n, p in stacked.items()}
+        hist = _gather(hist, mesh, len(fs), 1)
     for f, tree in zip(fs, skipping_dnn.unstack_params(stacked, len(fs))):
         state.params[f] = {n: {k: v.detach() for k, v in p.items()}
                            for n, p in tree.items()}
     return hist
+
+
+def _local(tree):
+    """This rank's shard of a distributed tensor or tree, as plain tensors."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.to_local().detach().contiguous()
+
+
+def _gather(local: torch.Tensor, mesh, num_fields: int, dim: int) -> torch.Tensor:
+    """The full tensor of the ranks' field shards along ``dim``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    sharded = shardlib.field_sharding(mesh, num_fields)[0] != Replicate()
+    return DTensor.from_local(local.contiguous(), mesh,
+                              [Shard(dim) if sharded else Replicate()]
+                              ).full_tensor()
 
 
 def group_results(state: _GroupState):
@@ -391,6 +434,52 @@ def _finalize_group(state: _GroupState, fields, recs, ebs, conv_arcs,
 
 
 # ---------------------------------------------------------------------------
+# Devices
+# ---------------------------------------------------------------------------
+
+def session_devices(device: torch.device) -> list:
+    """The devices a session on ``device`` may use: every CUDA device for
+    ``cuda`` without an index, else ``device`` alone."""
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def conv_device(devices: list, prefetch: bool):
+    """The conventional stage's device: the last one, so that it never
+    queues behind enhancer training; None on one device or without
+    ``prefetch``."""
+    return devices[-1] if prefetch and len(devices) > 1 else None
+
+
+def training_devices(devices: list, conv_dev=None) -> list:
+    """The devices unrolled groups go round-robin over: every device but
+    the conventional stage's, when there is more than one."""
+    devs = list(devices)
+    if conv_dev is not None and len(devs) > 1:
+        devs = devs[:-1]
+    return devs
+
+
+def group_device(gi: int, train_devs: list, strategy: str, field_shard: bool,
+                 default):
+    """Group ``gi``'s training device: ``train_devs[gi % len(train_devs)]``
+    for an unrolled group under ``field_shard`` on several devices, else
+    ``default``."""
+    if field_shard and len(train_devs) > 1 and strategy == "unroll":
+        return train_devs[gi % len(train_devs)]
+    return default
+
+
+def _on(device):
+    """The current CUDA device set to ``device`` (its kernels launch
+    there); nothing for the CPU."""
+    if device.type == "cuda" and device.index is not None:
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+# ---------------------------------------------------------------------------
 # Engine entry points
 # ---------------------------------------------------------------------------
 
@@ -402,10 +491,15 @@ def compress(fields: Mapping[str, np.ndarray], rel_eb: float | None = None, *,
     """Compress one snapshot with the batched engine on ``device`` (``cuda``
     unless given); the serial engine's archive contract, arguments and
     entries (``init_params`` / ``batch_schedules`` as there; a stacked
-    group takes its fields' one shared schedule)."""
+    group takes its fields' one shared schedule).  ``field_shard`` spreads
+    the work over :func:`session_devices`."""
     config = config or neurlz.NeurLZConfig(engine="batched")
     config.check()
     device = device_lib.resolve(device)
+    devices = session_devices(device)
+    conv_dev = conv_device(devices, config.prefetch)
+    train_devs = training_devices(devices, conv_dev)
+    mesh = shardlib.field_mesh(train_devs) if config.field_shard else None
     tel = obs_lib.of(config)
     fc = faults_lib.of(config)
     t0 = time.perf_counter()
@@ -418,16 +512,19 @@ def compress(fields: Mapping[str, np.ndarray], rel_eb: float | None = None, *,
         modes = ({n: b.mode for n, b in resolved.items()}
                  if resolved is not None else None)
         groups = plan_groups(fields, config, modes=modes)
+        stage_dev = conv_dev if conv_dev is not None else device
         stage = conv_stage_lib.ConvStage(config.compressor, rel_eb, abs_eb,
                                          batch=config.conv_batch,
-                                         bounds=resolved, device=device,
+                                         bounds=resolved, device=stage_dev,
                                          telemetry=tel)
         conv_arcs, recs, ebs = {}, {}, {}
 
         def conv_compress(names):
             todo = {n: fields[n] for n in names if n not in conv_arcs}
             if todo:
-                for name, (arc, rec) in stage.run(todo).items():
+                with _on(stage_dev):
+                    done = stage.run(todo)
+                for name, (arc, rec) in done.items():
                     conv_arcs[name], recs[name], ebs[name] = \
                         arc, rec, arc["abs_eb"]
 
@@ -446,18 +543,24 @@ def compress(fields: Mapping[str, np.ndarray], rel_eb: float | None = None, *,
         def finalize(state):
             nonlocal finalize_s
             ts = time.perf_counter()
-            _finalize_group(state, fields, recs, ebs, conv_arcs,
-                            collect_stats, out_fields, tel=tel, fc=fc,
-                            degraded=degraded)
+            with _on(state.device):
+                _finalize_group(state, fields, recs, ebs, conv_arcs,
+                                collect_stats, out_fields, tel=tel, fc=fc,
+                                degraded=degraded)
             finalize_s += time.perf_counter() - ts
 
-        for group in groups:
+        for gi, group in enumerate(groups):
             conv_compress(group.names)
-            with tel.span("train", group=",".join(group.names)):
+            counts = [sliced_shape(np.shape(fields[n]), config.slice_axis)[0]
+                      for n in group.names]
+            dev = (device if mesh is not None else group_device(
+                gi, train_devs, resolve_batching(config.field_batching, counts),
+                config.field_shard, device))
+            with tel.span("train", group=",".join(group.names)), _on(dev):
                 state = _prepare_group(group, fields, recs, ebs, config,
-                                       tcfg, device, init_params,
+                                       tcfg, dev, init_params,
                                        batch_schedules)
-                _dispatch_group(state, config, tcfg, device, fc)
+                _dispatch_group(state, config, tcfg, dev, fc, mesh)
             strategies[",".join(group.names)] = state.strategy
             states.append(state)
             # Depth 2: a group finalizes once the next one is dispatched.

@@ -74,8 +74,8 @@ class NeurLZConfig:
     field_batching: str = "auto"        # auto | unroll | vmap (stacked)
     group_size: int = 2                 # fields per group (0 = all)
     prefetch: bool = True               # conventional stage lazily a group
-    field_shard: bool = True            # spread groups over devices: the
-    #   session has one device, so nothing to spread (ROADMAP item 6)
+    field_shard: bool = True            # spread groups over devices (the
+    #   batched engine's training_devices / field_mesh; one device: no-op)
     max_resident_bytes: int = 0         # streaming residency budget (0: off)
     telemetry: object | None = None     # repro_torch.obs.Telemetry (None:
     #   disabled, every instrumentation point a shared no-op singleton)

@@ -185,6 +185,11 @@ def forward(params, x: torch.Tensor, *, regulated: bool = True,
     return _net(params, x, conv3x3, _deconv, regulated=regulated, skip=skip)
 
 
+def apply(params, x: torch.Tensor, cfg: SkippingDNNConfig) -> torch.Tensor:
+    """:func:`forward` with ``cfg``'s regulation and skip connections."""
+    return forward(params, x, regulated=cfg.regulated, skip=cfg.skip)
+
+
 def forward_stacked(params, x: torch.Tensor, *, regulated: bool = True,
                     skip: bool = True) -> torch.Tensor:
     """F enhancers at once: ``params`` a stacked tree (:func:`stack_params`),

@@ -1,0 +1,345 @@
+"""Logical-axis sharding rules: param / cache / input trees -> specs, and
+specs -> DTensor placements.
+
+The port of the JAX package's ``repro/distributed/sharding.py``, with the
+same rules, regexes and fallbacks.  Conventions (``models.layers``):
+  * ``*_in``   [d_in, d_out], d_out tensor-parallel      -> P(fsdp, tp)
+  * ``*_out``  [d_in, d_out], d_in  tensor-parallel      -> P(tp, fsdp)
+  * ``embed``  [vocab, d]                                 -> P(tp, fsdp)
+  * ``w_experts_{gate,up}`` [E, d, f]  (expert parallel)  -> P(tp, fsdp, ·)
+  * ``w_experts_down``      [E, f, d]                     -> P(tp, ·, fsdp)
+  * 1-D scales/biases                                     -> replicated
+
+Rules apply to the TRAILING dims; leading stack dims are never sharded.
+Every dim is guarded by a divisibility check: a dim that does not divide
+its mesh axis is replicated rather than failing, so one rule set serves
+every arch.  Weights are FSDP-sharded within a pod (``data``) and
+replicated across pods; the batch spans ("pod", "data").
+
+A spec is :class:`P`, a tuple with one entry per tensor dim: an axis
+name, a tuple of names (one dim over several axes, in the mesh's order),
+or ``None``.  A mesh is anything with ``.shape``: a dict of axis sizes
+(``launch.mesh.MeshShape``) or a ``DeviceMesh`` (sizes by
+``mesh_dim_names``).  :func:`to_named` turns specs into per-leaf DTensor
+placements (``Shard(dim)`` or ``Replicate()`` for each mesh dim),
+:func:`distribute` places a tree by them.
+"""
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import torch
+
+
+class P(tuple):
+    """A partition spec: ``P("data", None)``; ``P()`` replicates.  As in
+    JAX, a one-axis tuple is that axis and an empty one ``None``."""
+
+    def __new__(cls, *axes):
+        def norm(a):
+            if isinstance(a, tuple) and len(a) <= 1:
+                return a[0] if a else None
+            return a
+        return super().__new__(cls, (norm(a) for a in axes))
+
+    def __repr__(self) -> str:
+        return "P" + (tuple.__repr__(self) if len(self) != 1
+                      else f"({self[0]!r})")
+
+
+def mesh_sizes(mesh) -> dict:
+    """``{axis: size}`` of a mesh shape or a ``DeviceMesh``."""
+    shape = mesh.shape
+    if isinstance(shape, Mapping):
+        return dict(shape)
+    return dict(zip(mesh.mesh_dim_names, shape))
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    sizes = mesh_sizes(mesh)
+    if isinstance(axis, tuple):
+        n = 1
+        for a in axis:
+            n *= int(sizes[a])
+        return n
+    return int(sizes[axis])
+
+
+def _guard(spec: tuple, shape: tuple, mesh) -> P:
+    """Replicate any dim that doesn't divide its mesh axis; trim/extend."""
+    spec = (None,) * (len(shape) - len(spec)) + tuple(spec[-len(shape):] if spec else ())
+    out = []
+    for dim, ax in zip(shape, spec):
+        out.append(ax if ax is not None and dim % _axis_size(mesh, ax) == 0 else None)
+    return P(*out)
+
+
+# trailing-name -> trailing-dims spec (applied to the last len(spec) dims)
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    (r"embed$", ("model", "data")),
+    (r"w_experts_(gate|up)$", ("model", "data", None)),
+    (r"w_experts_down$", ("model", None, "data")),
+    (r"r_gates$", ("model", None, None)),
+    (r"conv_w$", (None, "model")),
+    (r".*_in$", ("data", "model")),
+    (r".*_out$", ("model", "data")),
+]
+
+_CACHE_RULES: list[tuple[str, tuple, tuple]] = [
+    # (name, primary trailing spec, fallback trailing spec)
+    (r"^(k|v)$", ("batch", None, "model", None), ("batch", None, None, "model")),
+    (r"^state$", ("batch", "model", None, None), ("batch", None, None, None)),
+    (r"^conv$", ("batch", None, "model"), ("batch", None, None)),
+    (r"^S$", ("batch", "model", None, None), ("batch", None, None, None)),
+    (r"^(n|c|h)$", ("batch", "model", None), ("batch", None, None)),
+    (r"^m$", ("batch", "model"), ("batch", None)),
+]
+
+BATCH_AXES = ("pod", "data")
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict's leaves, keys kept."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_pspecs(abstract_params, mesh):
+    """Spec tree for a param tree (by path-name rules)."""
+
+    def assign(path, leaf):
+        name = path[-1]
+        shape = tuple(leaf.shape)
+        if len(shape) <= 1:
+            return P()
+        for pat, spec in _PARAM_RULES:
+            if re.search(pat, name):
+                return _guard(spec, shape, mesh)
+        return P()  # replicate anything unmatched
+
+    return _map_with_path(assign, abstract_params)
+
+
+def batch_axes_for(mesh, batch_size: int):
+    """Largest batch sharding the mesh supports for this batch size."""
+    sizes = mesh_sizes(mesh)
+    full = tuple(a for a in BATCH_AXES if a in sizes)
+    if full and batch_size % _axis_size(mesh, full) == 0:
+        return full
+    for a in reversed(full):
+        if batch_size % _axis_size(mesh, (a,)) == 0:
+            return (a,)
+    return None
+
+
+def cache_pspecs(abstract_cache, mesh, batch_size: int):
+    batch = batch_axes_for(mesh, batch_size)
+
+    def assign(path, leaf):
+        name = path[-1]
+        shape = tuple(leaf.shape)
+        for pat, spec, fallback in _CACHE_RULES:
+            if re.search(pat, name):
+                primary = list(batch if a == "batch" else a for a in spec)
+                fb = list(batch if a == "batch" else a for a in fallback)
+                # Long-context decode with unshardable batch (e.g. B=1 at
+                # 500k): sequence-parallel KV cache over the data axis.
+                if re.match(r"^(k|v)$", name) and batch is None:
+                    primary[1] = "data"
+                    fb[1] = "data"
+                cand = _guard(tuple(primary), shape, mesh)
+                # If the model-parallel dim was dropped by the guard, try the
+                # fallback (e.g. shard head_dim when KV heads don't divide).
+                if "model" in spec and "model" not in cand:
+                    return _guard(tuple(fb), shape, mesh)
+                return cand
+        return P()
+
+    return _map_with_path(assign, abstract_cache)
+
+
+def input_pspecs(specs: dict, mesh, *, seq_shard: bool = False):
+    """Input batch shardings: batch over (pod, data); optional SP on seq."""
+
+    def assign(leaf):
+        shape = tuple(leaf.shape)
+        batch = batch_axes_for(mesh, shape[0])
+        rest = [None] * (len(shape) - 1)
+        if seq_shard and len(shape) >= 2 and shape[1] % _axis_size(mesh, "model") == 0:
+            rest[0] = "model"
+        return P(batch, *rest)
+
+    return {k: assign(v) for k, v in specs.items()}
+
+
+def opt_pspecs(param_specs):
+    """AdamW state: moments follow the params; step is replicated."""
+    from ..optim.adamw import AdamWState
+
+    return AdamWState(step=P(), mu=param_specs,
+                      nu=_map_with_path(lambda _, s: s, param_specs))
+
+
+# ---------------------------------------------------------------------------
+# Specs -> DTensor placements
+# ---------------------------------------------------------------------------
+
+def placements(spec: tuple, mesh) -> tuple:
+    """One placement per dim of the ``DeviceMesh``: ``Shard(d)`` where the
+    spec puts tensor dim ``d`` on that axis, else ``Replicate()``.  A dim
+    over several axes (``("pod", "data")``) is split in the mesh's order, as
+    DTensor splits it; another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"dim {d} of {spec} lists its axes out of the "
+                             f"mesh's order {tuple(names)}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, P)
+
+
+def _map_specs(fn, tree):
+    if _is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_specs(fn, v) for v in tree))
+    raise TypeError(f"not a spec tree leaf: {tree!r}")
+
+
+def to_named(tree_specs, mesh):
+    """The spec tree as a tree of placements on ``mesh`` (a ``DeviceMesh``)."""
+    return _map_specs(lambda s: placements(s, mesh), tree_specs)
+
+
+def distribute(tree, tree_specs, mesh):
+    """``distribute_tensor`` of every leaf of a tensor tree by its spec;
+    every rank passes the same full tensors."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(path, leaf):
+        node = tree_specs
+        for k in path:
+            node = node[k]
+        return distribute_tensor(leaf, mesh, placements(node, mesh))
+
+    return _map_with_path(put, tree)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraints.
+#
+# Model code calls ``constrain(x, ("batch", None, "model"))`` at key points
+# (embedding output, q/k/v, MLP hidden).  Under an active mesh a DTensor is
+# redistributed to the guarded spec there; a plain tensor, or any tensor
+# with no active mesh, passes through as itself.
+# ---------------------------------------------------------------------------
+
+class _Active:
+    mesh = None
+
+
+# ---------------------------------------------------------------------------
+# Field-axis sharding for the batched NeurLZ compression engine.
+#
+# The engine stacks per-field enhancer params/slices on a leading "field"
+# axis (``core.skipping_dnn.stack_params``); placing that axis on a 1-D
+# device mesh makes each rank train its own subset of a snapshot's fields —
+# enhancers are independent, so no collective runs until the trained
+# weights are gathered for the archive.  DTensor puts one shard on each
+# rank of a process group: a mesh exists where the world is one rank a
+# device over those devices.
+# ---------------------------------------------------------------------------
+
+FIELD_AXIS = "field"
+
+
+def field_mesh(devices=None):
+    """1-D ``DeviceMesh`` (``field``) over the process group's ranks, one a
+    device of ``devices`` (every CUDA device unless given); ``None`` on one
+    device, or where no process group holds one rank for each device (one
+    process over several cards: the engine then spreads unrolled groups
+    over the cards instead)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    devs = (list(devices) if devices is not None else
+            [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    if len(devs) <= 1:
+        return None
+    if not dist.is_initialized() or dist.get_world_size() != len(devs):
+        return None
+    return init_device_mesh(torch.device(devs[0]).type, (len(devs),),
+                            mesh_dim_names=(FIELD_AXIS,))
+
+
+def field_sharding(mesh, num_fields: int) -> tuple:
+    """Placements for a leading-``F``-axis tensor, guarded: a field count
+    that doesn't divide the mesh replicates instead of failing."""
+    ax = FIELD_AXIS if num_fields % _axis_size(mesh, FIELD_AXIS) == 0 else None
+    return placements(P(ax), mesh)
+
+
+def shard_fields(tree, mesh):
+    """``distribute_tensor`` of every leading-``F``-axis leaf of a stacked
+    tree (a tensor or a nested dict of them)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(_, leaf):
+        return distribute_tensor(leaf, mesh, field_sharding(mesh, leaf.shape[0]))
+    return _map_with_path(put, tree)
+
+
+def set_active_mesh(mesh) -> None:
+    _Active.mesh = mesh
+
+
+def active_mesh():
+    return _Active.mesh
+
+
+def constrain(x, spec: tuple):
+    """Redistribute a DTensor to the guarded spec under the active mesh;
+    ``x`` itself without a mesh or for a plain tensor.
+
+    ``"batch"`` resolves to the (pod, data) axes that divide the dim;
+    any other axis name is kept only if the dim divides it.
+    """
+    mesh = _Active.mesh
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    resolved = []
+    for dim, ax in zip(x.shape, spec):
+        if ax == "batch":
+            ax = batch_axes_for(mesh, dim)
+        if ax is None:
+            resolved.append(None)
+        elif dim % _axis_size(mesh, ax) == 0:
+            resolved.append(ax)
+        else:
+            resolved.append(None)
+    want = placements(P(*resolved), mesh)
+    if tuple(x.placements) == want and x.device_mesh == mesh:
+        return x
+    return x.redistribute(mesh, want)

@@ -3,16 +3,17 @@
 Train/prefill path computes full (optionally windowed) causal attention;
 decode path attends one new token against a fixed-capacity cache.  Head
 projections keep the JAX package's tensor-parallel names (``w_in`` /
-``w_out``).  That package pins the sharding of q, k, v and the output
-(``repro.distributed.sharding.constrain``); on one device those pins are
-no-ops, so the port leaves them out, and the distributed slice brings
-them back.
+``w_out``).  q, k, v and the output pass through
+``distributed.sharding.constrain`` where the JAX package pins their
+sharding: a DTensor under an active mesh is redistributed there, any other
+tensor passes through as itself.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..distributed.sharding import constrain
 from .layers import apply_rope, compute_dtype, dense_init, head_rmsnorm, zeros
 
 NEG = -1e30
@@ -44,6 +45,11 @@ def _project_qkv(p, cfg, x, positions, theta):
         k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
+    # Batch over (pod, data), heads over model (falls back to head_dim for
+    # small-KV archs via the divisibility guard).
+    q = constrain(q, ("batch", None, "model", None))
+    k = constrain(k, ("batch", None, "model", None))
+    v = constrain(v, ("batch", None, "model", None))
     return q, k, v
 
 
@@ -87,6 +93,9 @@ def _sdpa_chunked(q, k, v, cfg=None, *, causal: bool, window: int | None,
     qc = q.reshape(b, nq, cq, kv, g, hd).float() / np.sqrt(hd)
     kc = k.reshape(b, nk, ck, kv, hd).float()
     vc = v.reshape(b, nk, ck, kv, hd).float()
+    qc = constrain(qc, ("batch", None, None, "model", None, None))
+    kc = constrain(kc, ("batch", None, None, "model", None))
+    vc = constrain(vc, ("batch", None, None, "model", None))
 
     def bias_for(i, j):
         """Additive float32 mask bias [cq, ck]."""
@@ -161,6 +170,7 @@ def forward(p, cfg, x, positions, *, window=None, theta=None, mask=None,
     else:
         out = _sdpa_chunked(q, k, v, cfg, causal=cfg.causal, window=window,
                             skip_uncausal=skip_uncausal)
+    out = constrain(out, ("batch", None, "model", None))
     b = x.shape[0]
     out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["w_o_out"]
     return out, (k, v)

@@ -12,7 +12,9 @@ uses as a well-conditioned card-vs-CPU check.
 
 Initializers draw from an explicit ``torch.Generator`` on the tensor's
 device; their values are not the JAX package's (tests carry its weights
-across with ``model.params_from_jax``).  Every initializer takes a
+across with ``model.params_from_jax``).  With no generator they draw
+nothing: the shapes of ``model.abstract_params`` on the meta device, which
+has no generator.  Every initializer takes a
 ``lead`` shape, the stacked layer or unit axes, so a stack of layers is
 one draw.
 """
@@ -24,7 +26,10 @@ import torch.nn.functional as F
 
 
 def normal(gen, shape, dtype, scale: float, device):
-    """``N(0, 1) · scale`` drawn in float32, then cast to ``dtype``."""
+    """``N(0, 1) · scale`` drawn in float32, then cast to ``dtype``; with
+    ``gen=None`` an empty tensor of that shape (the meta device's)."""
+    if gen is None:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
     return x.mul_(scale).to(dtype)

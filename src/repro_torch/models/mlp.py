@@ -1,6 +1,7 @@
 """Gated MLP (SwiGLU / GeGLU)."""
 from __future__ import annotations
 
+from ..distributed.sharding import constrain
 from .layers import activation, dense_init
 
 
@@ -13,8 +14,7 @@ def init(gen, d_model: int, d_ff: int, dtype, device, lead: tuple = ()):
 
 
 def forward(p, x, act: str = "silu"):
-    # The JAX package pins h's sharding here (``constrain``); on one device
-    # that is a no-op, and the distributed slice of the port brings it back.
     g = activation(act)(x @ p["w_gate_in"])
     h = g * (x @ p["w_up_in"])
+    h = constrain(h, ("batch", None, "model"))
     return h @ p["w_down_out"]

@@ -7,7 +7,10 @@ inner loop: one new token against the KV caches).  ``init_params`` draws a
 model's parameters on a device, ``init_train_state`` adds the optimizer
 state; ``params_from_jax`` carries the JAX package's parameters across, and
 ``flatten_params`` gives a model's parameters under the JAX package's
-checkpoint keys.  The dry-run specs are a later slice.
+checkpoint keys.  ``input_specs``, ``abstract_params``,
+``abstract_opt_state`` and ``abstract_cache`` give shape and dtype trees at
+any width on the meta device, allocating nothing (the sharding rules read
+them).
 """
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ import numpy as np
 import torch
 
 from .. import device as device_lib
-from ..configs.base import ModelConfig
-from ..optim import adamw_init, adamw_update, global_norm
+from ..configs.base import ModelConfig, ShapeConfig
+from ..optim import AdamWState, adamw_init, adamw_update, global_norm
 from ..optim.adamw import tree_items, tree_leaves, tree_unflatten
 from .transformer import Model
 
@@ -25,6 +28,55 @@ def build_model(cfg: ModelConfig, model_axis: int = 16) -> Model:
     # model_axis sizes the padded expert axis (moe.padded_experts): keep the
     # JAX package's default; the serving driver passes 1.
     return Model(cfg, model_axis=model_axis)
+
+
+# ---------------------------------------------------------------------------
+# input specs and abstract trees (meta tensors: shapes and dtypes, no data)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors for every model input of ``shape`` (the JAX package's
+    ``ShapeDtypeStruct`` stand-ins)."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = cfg.params_dtype
+    if shape.kind == "decode":
+        # decode inputs: one token per sequence (cache specs built separately)
+        if cfg.family == "audio":
+            raise ValueError("encoder-only arch has no decode step")
+        return {"tokens": _spec((b, 1), torch.int32)}
+    if cfg.family == "audio":
+        return {"features": _spec((b, s, cfg.d_model), dt),
+                "mask": _spec((b, s), torch.bool),
+                "targets": _spec((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        s_img = cfg.frontend_tokens
+        return {"tokens": _spec((b, s - s_img), torch.int32),
+                "image_embeds": _spec((b, s_img, cfg.d_model), dt)}
+    return {"tokens": _spec((b, s), torch.int32)}
+
+
+def abstract_params(model: Model) -> dict:
+    """The parameter tree as meta tensors, drawn from nothing and not
+    registered on the model."""
+    return model.init(None, device=META)
+
+
+def abstract_opt_state(abstract_p) -> AdamWState:
+    """AdamW's state for ``abstract_p``: float32 moments and the int32
+    step, as meta tensors."""
+    st = adamw_init(abstract_p)
+    return AdamWState(step=_spec((), torch.int32), mu=st.mu, nu=st.nu)
+
+
+def abstract_cache(model: Model, batch: int, max_len: int) -> dict:
+    return model.init_cache(batch, max_len, device=META)
 
 
 def demo_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
+from ..distributed.sharding import constrain
 from . import attention, mlp, moe, ssm, xlstm
 from .layers import activation, compute_dtype, dense_init, embed_init, rmsnorm, zeros
 
@@ -126,7 +127,14 @@ def _attn_moe_init(gen, cfg, dtype, device, lead, model_axis):
 # block steps
 # ---------------------------------------------------------------------------
 
+def _sp(cfg, x):
+    if cfg.sp_residual:
+        return constrain(x, ("batch", "model", None))
+    return x
+
+
 def _attn_mlp_fwd(p, cfg, x, positions, window, theta):
+    x = _sp(cfg, x)
     h, _ = attention.forward(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
                              positions, window=window, theta=theta,
                              skip_uncausal=cfg.attn_skip_uncausal)
@@ -136,6 +144,7 @@ def _attn_mlp_fwd(p, cfg, x, positions, window, theta):
 
 
 def _attn_moe_fwd(p, cfg, x, positions, model_axis):
+    x = _sp(cfg, x)
     h, _ = attention.forward(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
                              positions, skip_uncausal=cfg.attn_skip_uncausal)
     x = x + h
@@ -145,6 +154,7 @@ def _attn_moe_fwd(p, cfg, x, positions, model_axis):
 
 
 def _mamba_fwd(p, cfg, x):
+    x = _sp(cfg, x)
     return x + ssm.forward(p["mamba"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps))
 
 
@@ -239,11 +249,15 @@ class Model(nn.Module):
         return _tree_of(self)
 
     # ---- init -------------------------------------------------------------
-    def init(self, gen: torch.Generator) -> dict:
-        """A fresh parameter tree, drawn from ``gen`` on its device."""
+    def init(self, gen: torch.Generator | None, device=None) -> dict:
+        """A fresh parameter tree, drawn from ``gen`` on its device; with
+        ``gen=None``, the shapes alone on ``device="meta"``."""
         cfg = self.cfg
         dtype = cfg.params_dtype
-        dev = gen.device
+        dev = gen.device if gen is not None else torch.device(device)
+        if gen is None and dev.type != "meta":
+            raise ValueError("parameters off the meta device are drawn from "
+                             "a generator")
         vpad = pad_vocab(cfg.vocab_size)
         params: dict[str, Any] = {
             "embed": embed_init(gen, vpad, cfg.d_model, dtype, dev),
@@ -309,7 +323,7 @@ class Model(nn.Module):
         if cfg.embed_scale:
             x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
                                  device=x.device)
-        return x
+        return constrain(x, ("batch", None, None))
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
@@ -455,12 +469,12 @@ class Model(nn.Module):
         return loss
 
     # ---- decode -------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int):
+    def init_cache(self, batch: int, max_len: int, device=None):
         """Zeroed KV caches and recurrent states, stacked like the layers,
-        on the device of the registered parameters."""
+        on ``device`` (the registered parameters' unless given)."""
         cfg = self.cfg
         dtype = cfg.params_dtype
-        dev = self.embed.device
+        dev = torch.device(device) if device is not None else self.embed.device
 
         def stack(lead, length):
             return attention.init_cache(cfg, batch, length, dtype, dev, lead)

@@ -73,13 +73,16 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(like, leaves) -> dict:
     """A tree shaped like ``like`` holding ``leaves`` in :func:`tree_leaves`
     order."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(like)
+
+def _unflatten(t, it):
+    # Module-level, not a closure: a recursive closure is a reference cycle
+    # that would hold ``leaves`` (a whole gradient tree on the card) until
+    # the cyclic collector runs.
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):

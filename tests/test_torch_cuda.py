@@ -839,3 +839,84 @@ def test_restart_drill_on_gpu_bit_for_bit(cuda_device, tmp_path):
     for name in ("params.bin", "opt.bin"):
         a = (tmp_path / "a" / "step_6" / name).read_bytes()
         assert a == (tmp_path / "b" / "step_6" / name).read_bytes(), name
+
+
+# ---- the distributed layer over NCCL (one rank: NCCL takes one rank a
+# device; the multi-rank checks run over gloo in test_torch_distributed.py)
+
+@pytest.fixture
+def nccl_host_mesh(cuda_device):
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_world(cuda_device)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield mesh_lib.make_host_mesh(cuda_device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_bits(a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+@pytest.mark.cuda
+def test_compressed_and_bf16_psum_over_nccl(nccl_host_mesh, cuda_device):
+    """One rank: the mean is ``dequantize(quantize_ef(g))`` bit for bit,
+    the carry ``g + ef - mean``, the sum in int32 on the wire;
+    ``bf16_psum`` is ``bf16(g).float()``."""
+    from repro_torch.optim import grad_compress as gc
+
+    gen = torch.Generator().manual_seed(5)
+    g = {"a": torch.randn((64, 48), generator=gen).to(cuda_device),
+         "b": {"c": (torch.randn((7,), generator=gen) * 1e-3).to(cuda_device)}}
+    ef = {"a": (torch.randn((64, 48), generator=gen) * 1e-3).to(cuda_device),
+          "b": {"c": torch.zeros(7, device=cuda_device)}}
+    stats = {}
+    mean, new_ef = gc.compressed_psum(g, ef, stats=stats)
+    q, s, want_ef = gc.quantize_ef(g, ef)
+    want = gc.dequantize(q, s)
+    for got, exp in ((mean["a"], want["a"]), (mean["b"]["c"], want["b"]["c"]),
+                     (new_ef["a"], want_ef["a"]), (new_ef["b"]["c"], want_ef["b"]["c"])):
+        assert _same_bits(got, exp)
+    assert stats["wire_bytes"] == 4 * (64 * 48 + 7) + 4 * 2
+    out = gc.bf16_psum(g)
+    assert _same_bits(out["a"], g["a"].to(torch.bfloat16).float())
+
+
+@pytest.mark.cuda
+def test_reshard_rescale_and_constrain_over_nccl(nccl_host_mesh, cuda_device, tmp_path):
+    """The reduced qwen3-4b's state on the 1x1 NCCL mesh, saved and
+    ``rescale``'d bit for bit; ``constrain`` of a DTensor there."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_items
+
+    model = M.build_model(configs.get_reduced("qwen3-4b"), model_axis=1)
+    params, opt = M.init_train_state(model, seed=0, device=cuda_device)
+    placed = elastic.reshard_to_mesh(params, nccl_host_mesh)
+    for (_, d), (_, p) in zip(tree_items(placed), tree_items(params)):
+        assert _same_bits(d.to_local(), p.detach())
+    mgr = CheckpointManager(str(tmp_path), device=cuda_device)
+    mgr.save(1, placed, opt)
+    new_p, new_o, _ = elastic.rescale(mgr, 1, params, opt, nccl_host_mesh)
+    for (_, d), (_, p) in zip(tree_items(new_p), tree_items(params)):
+        assert _same_bits(d.to_local(), p.detach())
+    assert new_o.step == opt.step
+    x = distribute_tensor(torch.ones((4, 6, 4, 3), device=cuda_device), nccl_host_mesh,
+                          [Replicate(), Replicate()])
+    sh.set_active_mesh(nccl_host_mesh)
+    try:
+        y = sh.constrain(x, ("batch", None, "model", None))
+    finally:
+        sh.set_active_mesh(None)
+    assert tuple(y.placements) == (Shard(0), Shard(2))
+    assert _same_bits(y.to_local(), x.to_local())

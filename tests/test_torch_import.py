@@ -2,8 +2,10 @@
 compress/decode on the CPU, serving a field through
 ``repro_torch.ArchiveServer``, serving the reduced qwen3-4b LM through
 ``repro_torch.launch.serve`` and training it through
-``repro_torch.launch.train`` (with NeurLZ-compressed checkpoints), loads
-neither JAX nor any module of ``repro``."""
+``repro_torch.launch.train`` (with NeurLZ-compressed checkpoints), and
+importing the distributed layer (``distributed.sharding``,
+``distributed.elastic``, ``launch.mesh``), loads neither JAX nor any
+module of ``repro``."""
 import os
 import subprocess
 import sys
@@ -39,6 +41,10 @@ report = repro_torch.launch.train.train(types.SimpleNamespace(
     resume=True, lossy_ckpt_eb=1e-5, fail_at_step=None, step_deadline=120.0,
     log_every=0, device="cpu"))
 assert report["last_loss"] < report["first_loss"]
+import repro_torch.distributed.elastic
+import repro_torch.distributed.sharding
+import repro_torch.launch.mesh
+import repro_torch.optim.grad_compress
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -276,6 +276,20 @@ def test_lift_transform_matches_reference():
         ref_zfp._transform(jnp.asarray(fwd), inverse=True)).tobytes()
 
 
+@pytest.mark.parametrize("shape,axes", [(SHAPE, None), (SHAPE, (1, 2)),
+                                         (SHAPE[1:], None), ((1, 20, 24), None)])
+def test_nd_lorenzo_delta_matches_reference(shape, axes):
+    rng = np.random.default_rng(len(shape) + (axes is None))
+    q = rng.integers(-3000, 3000, shape).astype(np.int32)
+    want = np.asarray(ref_sz.lorenzo_delta(jnp.asarray(q), axes=axes))
+    got = port_sz.lorenzo_delta(torch.from_numpy(q), axes=axes)
+    assert got.dtype == torch.int32 and got.numpy().tobytes() == want.tobytes()
+    back = port_sz.lorenzo_undelta(got, axes=axes)
+    assert back.numpy().tobytes() == q.tobytes()
+    assert back.numpy().tobytes() == np.asarray(
+        ref_sz.lorenzo_undelta(jnp.asarray(want), axes=axes)).tobytes()
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     kernels.reset_launch_counts()
     x, eb = _eager_probe_group()

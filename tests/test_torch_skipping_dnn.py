@@ -46,6 +46,18 @@ def test_forward_matches_reference(c_in, regulated, skip, hw):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("c_in,regulated,skip,hw", [
+    (1, True, True, (17, 13)), (2, False, False, (16, 16))])
+def test_apply_matches_reference(c_in, regulated, skip, hw):
+    ref_params, model = _nets(c_in, regulated, skip)
+    x = np.random.default_rng(c_in).standard_normal((3, *hw, c_in)).astype(np.float32)
+    ref_cfg = ref_dnn.SkippingDNNConfig(c_in=c_in, regulated=regulated, skip=skip)
+    want = np.asarray(ref_dnn.apply(ref_params, x, ref_cfg))
+    with torch.no_grad():
+        got = port_dnn.apply(model.tree(), torch.from_numpy(x), model.cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
 def test_grads_match_jax_grad():
     ref_params, model = _nets()
     rng = np.random.default_rng(22)
