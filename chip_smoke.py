@@ -130,10 +130,29 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     bytes-once bounds, with their wire bytes; (d) an elastic drill at the
     reduced qwen3-4b: save, ``rescale`` onto a fresh 1x1 mesh, state and
     the next train step bit for bit;
-13. a ``zfplike`` conventional round trip on one full field;
-14. the launch count of every kernel over each path, counted from 0 just
+13. the dryrun path, the port's dry run (``repro_torch.launch.dryrun``):
+    (a) ``python -m repro_torch.launch.dryrun`` for qwen3-4b's train_4k,
+    prefill_32k and decode_32k and the ``neurlz_enhance`` cell on the
+    16x16 and 2x16x16 meshes (fake worlds of 256 and 512 ranks, meta
+    tensors, no card), one process a cell, started right after the build
+    at the lowest CPU priority and waited for here; each must be ``ok``,
+    and prints its peak bytes a device, compute, memory and collective ms
+    and dominant term; (b) one real qwen3-4b train step at the train
+    path's size on the card under ``launch.op_cost``'s counter: its
+    product FLOPs within DRYRUN_FLOPS_TOL of ``train_step_flops`` less the
+    recompute torch's checkpoint skips (``recompute_skipped_flops``), its
+    counted peak within DRYRUN_PEAK_TOL of ``max_memory_allocated``, its
+    roofline bound beside the step's time and the train path's bound, and
+    the same step lowered on a fake 1x1 world equal in FLOPs and bytes,
+    with no collective; (c) the real per-device ``neurlz_enhance`` step
+    (2 blocks of 512² x 10 slices, c_in=2) on the card: both grouped conv
+    kernels launch, and its counted FLOPs and bytes equal the fake 16x16
+    record's less its loss all-reduce;
+14. a ``zfplike`` conventional round trip on one full field;
+15. the launch count of every kernel over each path, counted from 0 just
     before the path: each kernel of a path must have launched in it (the
-    lm and dist paths launch none, the train path the Lorenzo kernels);
+    lm and dist paths launch none, the train path the Lorenzo kernels, the
+    dryrun path the grouped conv kernels);
     and each path's ``torch.cuda.max_memory_allocated``, reset before it.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call,
@@ -2201,6 +2220,17 @@ def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
     return 4.0 * bf16, 4.0 * f32
 
 
+def recompute_skipped_flops(cfg, batch: int, seq: int) -> float:
+    """Operations of train_step_flops's second forward that a dense step
+    does not run: torch's non-reentrant checkpoint stops recomputing a
+    layer after the last tensor its backward needs, so the layer's last
+    product, the MLP's down projection (2 · tokens · d_model · d_ff), is
+    not run again.  Dense family only."""
+    if cfg.family != "dense":
+        raise ValueError(f"no recompute reckoning for the {cfg.family} family")
+    return 2.0 * batch * seq * cfg.d_model * cfg.d_ff * cfg.n_layers
+
+
 def _train_full_width(dev, check, arch: str) -> dict:
     """(a) ``arch`` at full width and depth in its bfloat16: TRAIN_STEPS
     steps of
@@ -2914,6 +2944,269 @@ def dist_path(dev, report: dict) -> dict:
     return launches
 
 
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
+                ("qwen3-4b", "decode_32k"), ("neurlz_enhance", None))
+DRYRUN_MESHES = ("single", "multi")     # 16x16, 2x16x16
+DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
+DRYRUN_WAIT_S = 600        # the longest the phase waits for (a) to end
+DRYRUN_FLOPS_TOL = 0.05    # counted products vs train_step_flops, relative
+DRYRUN_PEAK_TOL = 0.10     # counted peak vs max_memory_allocated, relative
+ENHANCE_BLOCKS, ENHANCE_SIDE, ENHANCE_SLICES = 512, 512, 10   # the paper cell
+
+
+def _dryrun_tag(arch, shape, mesh) -> str:
+    return f"{arch}_{shape or 'na'}_{mesh}"
+
+
+def start_dryrun() -> list:
+    """(a) of the dryrun phase, started after the build: one process a
+    DRYRUN_CELLS cell (``python -m repro_torch.launch.dryrun``, both meshes
+    in turn: fake worlds of 256 and 512 ranks on meta tensors, no card:
+    CUDA is hidden from it), at the lowest CPU priority, so the card's
+    phases keep their host.  Returns ``[(cell, Popen, log)]``."""
+    import os
+
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--out", str(DRYRUN_DIR)]
+        cmd += (["--cell", arch] if shape is None
+                else ["--arch", arch, "--shape", shape])
+        log = open(DRYRUN_DIR / f"{arch}_{shape or 'na'}.log", "w")
+        procs.append(((arch, shape), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(19)), log))
+    return procs
+
+
+def stop_dryrun(procs) -> None:
+    """Ends every process of :func:`start_dryrun` still running."""
+    for _, p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def _dryrun_records(procs, check) -> dict:
+    """(a) Waits for the dry-run processes; each cell's record on each
+    mesh, which must be ``ok``."""
+    t0 = time.perf_counter()
+    recs = {}
+    for (arch, shape), p, log in procs:
+        left = max(DRYRUN_WAIT_S - (time.perf_counter() - t0), 1.0)
+        try:
+            p.wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            check(False, f"the dry run of {arch} {shape} did not end in "
+                  f"{DRYRUN_WAIT_S} s")
+        for mesh in DRYRUN_MESHES:
+            tag = _dryrun_tag(arch, shape, mesh)
+            path = DRYRUN_DIR / f"{tag}.json"
+            check(path.exists(), f"the dry run of {tag} wrote no record (exit "
+                  f"{p.returncode}): " + Path(log.name).read_text()[-2000:])
+            rec = json.loads(path.read_text())
+            check(rec.get("status") == "ok", f"{tag}: {rec.get('error')}")
+            r = rec["roofline"]
+            print(f"dryrun {tag}: peak {rec['memory']['peak_hbm_bytes'] / 1e9:.3f} "
+                  f"GB a device (args {rec['memory']['argument_bytes'] / 1e9:.4f}); "
+                  f"compute {r['compute_s'] * 1e3:.2f} ms, memory "
+                  f"{r['memory_s'] * 1e3:.2f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.2f} ms, dominant {r['dominant']}; "
+                  f"useful {rec.get('useful_compute_ratio')}; lowered in "
+                  f"{rec['lower_s']} s", flush=True)
+            recs[tag] = rec
+        check(p.returncode == 0, f"the dry run of {arch} {shape} exited "
+              f"{p.returncode}")
+    return recs
+
+
+def _dryrun_qwen(dev, check) -> dict:
+    """(b) One real qwen3-4b train step at the train path's size (full
+    width, bf16, TRAIN_BATCH x TRAIN_SEQ, full remat) on the card, counted
+    (after one warm step); its product FLOPs against train_step_flops, its
+    counted peak against max_memory_allocated; then the same step lowered
+    by ``lower_cell`` on a fake 1x1 world (meta tensors): the same FLOPs
+    and bytes, no collective."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config("qwen3-4b")
+    model = M.build_model(cfg, model_axis=1)
+    params, opt = M.init_train_state(model, seed=0, device=dev)
+    step_fn = M.make_train_step(model, remat_policy="nothing")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                     generator=gen, dtype=torch.int32).to(dev)}
+    params, opt, _ = step_fn(params, opt, batch, 0)          # warm
+    torch.cuda.synchronize()
+    args_bytes = dryrun.local_bytes((params, opt.mu, opt.nu, batch))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    with op_cost.OpCounter() as counter:
+        params, opt, met = step_fn(params, opt, batch, 1)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    real = counter.result()
+    check(bool(torch.isfinite(met["loss"])), "the counted step's loss is not finite")
+    # The train path's hand-reckoned bound (_train_full_width's).
+    bf16, f32 = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    adam_bytes = sum(p.numel() * (4 * p.element_size() + 16)
+                     for p in model.parameters())
+    hand_ms = (bf16 / BF16_FLOPS + f32 / F32_FLOPS
+               + adam_bytes / HBM_BYTES_PER_S) * 1e3
+    del params, opt, met, step_fn, model
+    _lm_free()
+
+    skipped = recompute_skipped_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    flops_gap = real["product_flops"] / (bf16 + f32 - skipped) - 1.0
+    counted_peak = args_bytes + real["peak_bytes"]
+    peak_gap = counted_peak / peak - 1.0
+    terms = rl.roofline_terms(real["flops"], real["bytes"], 0.0)
+    roof_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    out = {"product_flops": real["product_flops"], "flops": real["flops"],
+           "bytes": real["bytes"], "transcendentals": real["transcendentals"],
+           "train_step_flops": bf16 + f32, "recompute_skipped": skipped,
+           "raw_flops_gap": real["product_flops"] / (bf16 + f32) - 1.0,
+           "flops_gap": flops_gap,
+           "args_bytes": args_bytes, "base_allocated": base,
+           "counted_peak": counted_peak, "max_memory_allocated": peak,
+           "peak_gap": peak_gap, "step_ms": step_s * 1e3,
+           "roofline_ms": roof_ms, "roofline": terms, "hand_bound_ms": hand_ms}
+    check(abs(flops_gap) <= DRYRUN_FLOPS_TOL,
+          f"counted product FLOPs {real['product_flops']:.4e} vs "
+          f"train_step_flops {bf16 + f32:.4e} less the recompute's skipped "
+          f"{skipped:.4e} ({flops_gap:+.2%})")
+    check(abs(peak_gap) <= DRYRUN_PEAK_TOL,
+          f"counted peak {counted_peak:,} vs max_memory_allocated {peak:,} "
+          f"({peak_gap:+.2%})")
+
+    mesh = mesh_lib.make_fake_world(sizes={"data": 1, "model": 1})
+    try:
+        rec = dryrun.lower_cell(cfg, ShapeConfig("card_train", TRAIN_SEQ,
+                                                 TRAIN_BATCH, "train"),
+                                mesh, remat="nothing", microbatch=1)
+    finally:
+        dist.destroy_process_group()
+    out["fake_1x1"] = {"flops": rec["cost"]["flops_per_device"],
+                       "bytes": rec["cost"]["bytes_per_device"],
+                       "collectives": rec["collectives"]["per_kind_count"],
+                       "argument_bytes": rec["memory"]["argument_bytes"],
+                       "temp_bytes": rec["memory"]["temp_bytes"],
+                       "lower_s": rec["lower_s"]}
+    check(rec["cost"]["flops_per_device"] == real["flops"]
+          and rec["cost"]["bytes_per_device"] == real["bytes"],
+          f"fake 1x1 {rec['cost']['flops_per_device']:.6e} FLOPs, "
+          f"{rec['cost']['bytes_per_device']:.6e} B vs the card's "
+          f"{real['flops']:.6e}, {real['bytes']:.6e}")
+    check(not rec["collectives"]["per_kind_count"],
+          f"fake 1x1 collectives {rec['collectives']['per_kind_count']}")
+    return out
+
+
+def _dryrun_enhance(dev, record: dict, check) -> dict:
+    """(c) The real per-device share of ``neurlz_enhance`` on the 16x16
+    mesh (ENHANCE_BLOCKS / 256 stacked enhancers, ENHANCE_SIDE^2,
+    ENHANCE_SLICES slices, c_in=2) on the card, counted after a warm step:
+    it launches both grouped conv kernels, and its FLOPs and bytes equal
+    the fake 16x16 record's less the loss all-reduce."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun, op_cost
+
+    n_local = ENHANCE_BLOCKS // record["n_chips"]
+    params, opt, x, y = dryrun.enhance_state(n_local, ENHANCE_SIDE,
+                                             ENHANCE_SLICES, dev)
+    params, opt, _ = dryrun.enhance_step(params, opt, x, y)     # warm
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    t = time.perf_counter()
+    with op_cost.OpCounter() as counter:
+        params, opt, loss = dryrun.enhance_step(params, opt, x, y)
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    after = kernels.launch_counts()
+    real = counter.result()
+    moved = {k: after[k] - before[k] for k in ("conv2d3x3_grouped",
+                                               "conv2d3x3_grouped_bwd")}
+    want_bytes = (record["cost"]["bytes_per_device"]
+                  - record["cost"]["collective_hbm_bytes"])
+    out = {"blocks": n_local, "step_ms": step_ms, "loss": float(loss),
+           "flops": real["flops"], "bytes": real["bytes"],
+           "record_flops": record["cost"]["flops_per_device"],
+           "record_bytes_less_allreduce": want_bytes,
+           "launches": moved, "kernels": real["by_kernel"]}
+    check(all(v > 0 for v in moved.values()), f"grouped kernels not launched: {moved}")
+    check(real["flops"] == record["cost"]["flops_per_device"]
+          and real["bytes"] == want_bytes,
+          f"card {real['flops']:.6e} FLOPs, {real['bytes']:.6e} B vs the fake "
+          f"16x16 record's {record['cost']['flops_per_device']:.6e}, {want_bytes:.6e}")
+    check(not real["collective_count"], f"card step collectives {real['collective_count']}")
+    del params, opt, x, y
+    _lm_free()
+    return out
+
+
+def dryrun_path(dev, procs, report: dict) -> dict:
+    """The dry run: (a) the processes of :func:`start_dryrun`, (b)
+    ``_dryrun_qwen``, (c) ``_dryrun_enhance``.  Its kernels: the grouped
+    conv forward and backward of (c)."""
+    import torch
+    from repro_torch import kernels
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"dryrun path: {what}")
+
+    t_path = time.perf_counter()
+    t = time.perf_counter()
+    recs = _dryrun_records(procs, check)
+    wait_s = time.perf_counter() - t
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    qwen = _dryrun_qwen(dev, check)
+    print(f"dryrun qwen3-4b on the card (bf16, {TRAIN_BATCH} x {TRAIN_SEQ}, full "
+          f"remat): counted product FLOPs {qwen['product_flops']:.4e} vs "
+          f"train_step_flops {qwen['train_step_flops']:.4e} less the "
+          f"recompute's skipped {qwen['recompute_skipped']:.4e} "
+          f"({qwen['flops_gap']:+.3%}; raw {qwen['raw_flops_gap']:+.3%}); "
+          f"counted peak {qwen['counted_peak']:,} B vs "
+          f"max_memory_allocated {qwen['max_memory_allocated']:,} "
+          f"({qwen['peak_gap']:+.3%}); step {qwen['step_ms']:.2f} ms counted, "
+          f"roofline {qwen['roofline_ms']:.2f} ms ({qwen['roofline']['dominant']}), "
+          f"the train path's bound {qwen['hand_bound_ms']:.2f} ms; "
+          f"fake 1x1 equal ({qwen['fake_1x1']['flops']:.6e} FLOPs, "
+          f"{qwen['fake_1x1']['bytes']:.6e} B, lowered in "
+          f"{qwen['fake_1x1']['lower_s']} s)", flush=True)
+    enh = _dryrun_enhance(dev, recs[_dryrun_tag("neurlz_enhance", None, "single")],
+                          check)
+    print(f"dryrun neurlz_enhance on the card ({enh['blocks']} blocks, "
+          f"{ENHANCE_SIDE}^2 x {ENHANCE_SLICES}): {enh['flops']:.6e} FLOPs, "
+          f"{enh['bytes']:.6e} B = the fake 16x16 record less its all-reduce; "
+          f"launches {enh['launches']}; step {enh['step_ms']:.2f} ms counted",
+          flush=True)
+    launches = kernels.launch_counts()
+    out = {"records": recs, "wait_s": wait_s, "qwen3_4b": qwen,
+           "neurlz_enhance": enh, "launches": launches,
+           "device_peak_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_path}
+    print("dryrun_path", json.dumps({k: v for k, v in out.items()
+                                     if k != "records"}, default=str))
+    report["dryrun_path"] = out
+    return launches
+
+
 def zfplike_round_trip(dev, x, report: dict) -> None:
     """The ``zfplike`` conventional stage on one full field: the bound
     holds and decode equals the encoder's reconstruction."""
@@ -2977,6 +3270,18 @@ def main() -> int:
     for n, lines in report["ptxas"].items():
         print(f"  {n}: " + " | ".join(ln.strip() for ln in lines))
 
+    # The dry run's processes (the dryrun phase's part (a)) run beside the
+    # card's phases from here; the phase waits for them.
+    dry_procs = start_dryrun()
+    try:
+        return _run(args, shape, dev, smi, report, t_start, dry_procs)
+    finally:
+        stop_dryrun(dry_procs)
+
+
+def _run(args, shape, dev, smi, report, t_start, dry_procs) -> int:
+    import torch
+
     from repro_torch.data import fields as fields_lib
     t = time.perf_counter()
     fields = fields_lib.make_fields("hurricane", shape, seed=0)
@@ -3030,6 +3335,8 @@ def main() -> int:
     by_path["train"] = timed("train", train_path, dev, report)
     _lm_free()
     by_path["dist"] = timed("dist", dist_path, dev, report)
+    _lm_free()
+    by_path["dryrun"] = timed("dryrun", dryrun_path, dev, dry_procs, report)
     single = ("conv2d3x3", "conv2d3x3_bwd", "fused_enhance")
     path_kernels = {"main": single,
                     "lorenzo": single + ("lorenzo3d_fwd", "lorenzo3d_inv"),
@@ -3041,7 +3348,9 @@ def main() -> int:
                     "lm": (),   # the LM has no Pallas kernel, so none here
                     # the lossy checkpoints' and the gradient archive's
                     "train": ("lorenzo3d_fwd", "lorenzo3d_inv"),
-                    "dist": ()}   # the quantize and all-reduce: PyTorch, NCCL
+                    "dist": (),   # the quantize and all-reduce: PyTorch, NCCL
+                    # the enhancer cell's real step on the card
+                    "dryrun": ("conv2d3x3_grouped", "conv2d3x3_grouped_bwd")}
     for p, names in path_kernels.items():
         if not all(by_path[p][k] > 0 for k in names):
             raise AssertionError(f"a kernel never ran on the {p} path: {by_path[p]}")

@@ -307,6 +307,51 @@ def shard_fields(tree, mesh):
     return _map_with_path(put, tree)
 
 
+def join(t, ref):
+    """``t``, a plain tensor the step makes (positions, a mask, rotary
+    frequencies, a count), joined to ``ref``'s DTensor arithmetic as a
+    replicated DTensor on ``ref``'s mesh; ``t`` itself where ``ref`` is a
+    plain tensor (or ``t`` a DTensor already)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def gather_fsdp(w):
+    """A DTensor weight gathered over every mesh axis but ``model`` (the
+    FSDP all-gather before its use; its gradient is reduce-scattered back),
+    so a product keeps the batch's rows where they are and splits only
+    over ``model`` (tensor parallel); any other ``w`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(w, DTensor):
+        return w
+    names = list(w.device_mesh.mesh_dim_names)
+    want = [p if n == "model" else Replicate()
+            for n, p in zip(names, w.placements)]
+    return w if want == list(w.placements) else w.redistribute(w.device_mesh, want)
+
+
+def rows_like(make, ref):
+    """``make(n)``, a tensor of ``n`` equal rows (positions), with ``ref``'s
+    rows: ``n = ref.shape[0]`` for a plain ``ref``; for a DTensor, each
+    device makes its own rows, split over the axes that split ``ref``'s
+    rows and replicated over the rest."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(ref, DTensor):
+        return make(ref.shape[0])
+    if any(isinstance(p, Shard) and p.dim == 1 for p in ref.placements):
+        raise NotImplementedError("rows of a tensor split over its sequence")
+    pl = [p if p == Shard(0) else Replicate() for p in ref.placements]
+    return DTensor.from_local(make(ref.to_local().shape[0]), ref.device_mesh,
+                              pl, run_check=False)
+
+
 def set_active_mesh(mesh) -> None:
     _Active.mesh = mesh
 

@@ -6,6 +6,8 @@ Each wrapper counts the calls that launched its kernel in a module-level
 integer, under one lock (``_build.COUNT_LOCK``: kernels launch from a
 server's dispatcher thread too), so a run can show that its path went
 through the kernels.
+Each wrapper also tells an operation counter its work
+(``kernels.cost``), and on fake or meta tensors takes a shape-only branch.
 ``KERNELS`` maps each kernel to its module and the name of its counter
 there (``conv2d3x3`` holds the forward and the backward, single-field
 and grouped, ``lorenzo3d`` the encode and the decode).

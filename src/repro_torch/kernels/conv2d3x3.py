@@ -22,6 +22,10 @@ grid, the last wgrad block adding the per-block partial sums; at the
 stride-2 layers whose wgrad blocks fill an SM, dgrad is a launch of its
 own before it (``csrc/conv2d3x3_bwd.cu``).
 
+A ``FakeTensor`` or meta call takes a shape-only branch: empty outputs of
+the kernel's shapes, and the kernel's operations and bound bytes told to
+an operation counter (``kernels.cost``), as a launch tells them.
+
 Grouped calls (:func:`conv2d3x3_grouped`, :func:`conv2d3x3_bwd_grouped`,
 :class:`Conv3x3Grouped`) convolve F fields in one launch, each field with
 its own weights: ``x`` is ``(F*N, H, W, Cin)`` field-major, ``w`` is
@@ -39,7 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, cost
 
 MAX_CIN = 16
 MAX_COUT = 8
@@ -68,6 +72,26 @@ def same_pads(size: int, stride: int) -> tuple[int, int, int]:
     total = max((out - 1) * stride + 3 - size, 0)
     lo = total // 2
     return out, lo, total - lo
+
+
+def fwd_flops(y_shape, cin: int) -> float:
+    """Operations of a forward call: 2 a tap and input channel at every
+    output value (``y_shape`` the output's, all fields)."""
+    n, ho, wo, cout = y_shape
+    return 2.0 * n * ho * wo * cout * 9 * cin
+
+
+def _report_fwd(name: str, x, w, b, y) -> None:
+    cost.report(name, fwd_flops(y.shape, x.shape[-1]), cost.nbytes(x, w, b, y))
+
+
+def _report_bwd(name: str, g, y, x, w, relu: bool, dx, dw, db) -> None:
+    """dgrad (with ``dx``) and wgrad each as many operations as the
+    forward; the bound's bytes: x, w, g (and y for the ReLU mask) read
+    once, dx, dw, db written once."""
+    flops = fwd_flops(g.shape, x.shape[-1]) * (2 if dx is not None else 1)
+    cost.report(name, flops,
+                cost.nbytes(x, w, g, y if relu else None, dx, dw, db))
 
 
 def _windows(ho: int, wo: int, stride: int):
@@ -219,17 +243,35 @@ def bwd_kernels_per_call(x_shape, cout: int, *, stride: int = 1,
     return k
 
 
+def _fwd_out(x, w, stride: int) -> torch.Tensor:
+    n, h, wd, _ = x.shape
+    return torch.empty((n, same_pads(h, stride)[0], same_pads(wd, stride)[0],
+                        w.shape[-1]), dtype=torch.float32, device=x.device)
+
+
+def _bwd_out(x, w, cout: int, need_dx: bool, nf: int | None = None):
+    """Empty ``(dx, dw, db)`` of a backward call (``nf`` fields, or one)."""
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w)
+    db = torch.empty((cout,) if nf is None else (nf, cout),
+                     dtype=torch.float32, device=x.device)
+    return dx, dw, db
+
+
 def conv2d3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
     """Forward of the 3×3 conv: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
     global launches
     _check(x, w, b, stride)
+    if cost.shape_only(x, w, b):
+        y = _fwd_out(x, w, stride)
+        _report_fwd("conv2d3x3", x, w, b, y)
+        return y
     if x.device.type == "cpu":
         return conv2d3x3_plain(x, w, b, stride=stride, relu=relu)
     x, w, b = _cuda_operands("conv2d3x3", x, w, b)
     n, h, wd, _ = x.shape
-    y = torch.empty((n, same_pads(h, stride)[0], same_pads(wd, stride)[0],
-                     w.shape[-1]), dtype=torch.float32, device=x.device)
+    y = _fwd_out(x, w, stride)
     if y.numel() == 0:
         return y
     lib = _load()
@@ -243,6 +285,7 @@ def conv2d3x3(x, w, b, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
                            + lib.conv2d3x3_error_string(err).decode())
     with _build.COUNT_LOCK:
         launches += 1
+    _report_fwd("conv2d3x3", x, w, b, y)
     return y
 
 
@@ -264,14 +307,16 @@ def conv2d3x3_bwd(g, y, x, w, *, stride: int = 1, relu: bool = True,
         raise TypeError("conv2d3x3_bwd takes float32 tensors")
     if not (g.device == y.device == x.device):
         raise ValueError("g, y, x and w must share one device")
+    if cost.shape_only(g, y, x, w):
+        dx, dw, db = _bwd_out(x, w, cout, need_dx)
+        _report_bwd("conv2d3x3_bwd", g, y, x, w, relu, dx, dw, db)
+        return dx, dw, db
     if x.device.type == "cpu":
         dx = (conv2d3x3_dgrad_plain(g, y, w, x.shape, stride=stride, relu=relu)
               if need_dx else None)
         return (dx, *conv2d3x3_wgrad_plain(g, y, x, stride=stride, relu=relu))
     x, w, y, g = _cuda_operands("conv2d3x3_bwd", x, w, y, g)
-    dx = torch.empty_like(x) if need_dx else None
-    dw = torch.empty_like(w)
-    db = torch.empty(cout, dtype=torch.float32, device=x.device)
+    dx, dw, db = _bwd_out(x, w, cout, need_dx)
     if g.numel() == 0:
         if need_dx:
             dx.zero_()
@@ -292,6 +337,7 @@ def conv2d3x3_bwd(g, y, x, w, *, stride: int = 1, relu: bool = True,
                            + lib.conv2d3x3_bwd_error_string(err).decode())
     with _build.COUNT_LOCK:
         bwd_launches += 1
+    _report_bwd("conv2d3x3_bwd", g, y, x, w, relu, dx, dw, db)
     return dx, dw, db
 
 
@@ -384,12 +430,15 @@ def conv2d3x3_grouped(x, w, b, *, stride: int = 1, relu: bool = True
     CUDA tensors, :func:`conv2d3x3_grouped_plain` for CPU tensors."""
     global grouped_launches
     nf = _check_grouped(x, w, b, stride)
+    if cost.shape_only(x, w, b):
+        y = _fwd_out(x, w, stride)
+        _report_fwd("conv2d3x3_grouped", x, w, b, y)
+        return y
     if x.device.type == "cpu":
         return conv2d3x3_grouped_plain(x, w, b, stride=stride, relu=relu)
     x, w, b = _cuda_operands("conv2d3x3_grouped", x, w, b)
     n, h, wd, _ = x.shape
-    y = torch.empty((n, same_pads(h, stride)[0], same_pads(wd, stride)[0],
-                     w.shape[-1]), dtype=torch.float32, device=x.device)
+    y = _fwd_out(x, w, stride)
     if y.numel() == 0:
         return y
     lib = _load()
@@ -403,6 +452,7 @@ def conv2d3x3_grouped(x, w, b, *, stride: int = 1, relu: bool = True
                            + lib.conv2d3x3_error_string(err).decode())
     with _build.COUNT_LOCK:
         grouped_launches += 1
+    _report_fwd("conv2d3x3_grouped", x, w, b, y)
     return y
 
 
@@ -436,15 +486,17 @@ def conv2d3x3_bwd_grouped(g, y, x, w, *, stride: int = 1, relu: bool = True,
         raise TypeError("conv2d3x3_bwd_grouped takes float32 tensors")
     if not (g.device == y.device == x.device):
         raise ValueError("g, y, x and w must share one device")
+    if cost.shape_only(g, y, x, w):
+        dx, dw, db = _bwd_out(x, w, cout, need_dx, nf)
+        _report_bwd("conv2d3x3_grouped_bwd", g, y, x, w, relu, dx, dw, db)
+        return dx, dw, db
     if x.device.type == "cpu":
         dx = (conv2d3x3_grouped_dgrad_plain(g, y, w, x.shape, stride=stride,
                                             relu=relu) if need_dx else None)
         return (dx, *conv2d3x3_grouped_wgrad_plain(g, y, x, nf, stride=stride,
                                                    relu=relu))
     x, w, y, g = _cuda_operands("conv2d3x3_bwd_grouped", x, w, y, g)
-    dx = torch.empty_like(x) if need_dx else None
-    dw = torch.empty_like(w)
-    db = torch.empty((nf, cout), dtype=torch.float32, device=x.device)
+    dx, dw, db = _bwd_out(x, w, cout, need_dx, nf)
     if g.numel() == 0:
         if need_dx:
             dx.zero_()
@@ -465,6 +517,7 @@ def conv2d3x3_bwd_grouped(g, y, x, w, *, stride: int = 1, relu: bool = True,
                            + lib.conv2d3x3_bwd_error_string(err).decode())
     with _build.COUNT_LOCK:
         grouped_bwd_launches += 1
+    _report_bwd("conv2d3x3_grouped_bwd", g, y, x, w, relu, dx, dw, db)
     return dx, dw, db
 
 

@@ -11,6 +11,13 @@ a real 1×1 ``DeviceMesh`` with the axes ``("data", "model")`` over the
 current process group.  The device picks the backend: NCCL for ``cuda``,
 gloo for ``cpu``; a CUDA mesh on a group of another backend is an error,
 never a quiet switch to gloo.
+
+``make_fake_world`` gives the production mesh as a real ``DeviceMesh`` of
+256 or 512 ranks over torch's ``fake`` process-group backend, as rank 0:
+collectives return at once and move nothing, so one process can run a
+rank's share of a step (the dry run, ``launch.dryrun``).  A fake world is
+the default group: it cannot live beside a real one, so a dry run is a
+process of its own (or destroys the world when done).
 """
 from __future__ import annotations
 
@@ -103,3 +110,27 @@ def make_host_mesh(device="cuda"):
     return DeviceMesh.from_group([group, group], dev.type,
                                  mesh=torch.tensor([[rank]]),
                                  mesh_dim_names=AXES)
+
+
+def make_fake_world(*, multi_pod: bool = False, sizes: dict | None = None,
+                    device_type: str = "cpu"):
+    """A ``DeviceMesh`` of the production shape (or ``sizes``, axis name ->
+    size) over a fake process group of as many ranks, this process rank 0.
+
+    Raises if a process group already exists.  ``dist.destroy_process_group``
+    ends it."""
+    from torch.distributed.device_mesh import DeviceMesh
+    # Ships with torch: the fake backend's store, used by torch's own tests.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already: a fake world "
+                           "runs in a process of its own")
+    shape = dict(sizes) if sizes is not None else make_production_mesh(
+        multi_pod=multi_pod).shape
+    n = 1
+    for v in shape.values():
+        n *= int(v)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    ranks = torch.arange(n).reshape(tuple(int(v) for v in shape.values()))
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(shape))

@@ -7,13 +7,19 @@ projections keep the JAX package's tensor-parallel names (``w_in`` /
 ``distributed.sharding.constrain`` where the JAX package pins their
 sharding: a DTensor under an active mesh is redistributed there, any other
 tensor passes through as itself.
+
+On DTensors the attention core runs on each device's shards
+(:func:`_on_shards`, the counterpart of the JAX package's SPMD partitioning
+of the same einsums): the grouped-query reshape of a head axis sharded
+over ``model`` has no DTensor sharding rule, and the chunk loops would pay
+DTensor's dispatch on every small product.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, gather_fsdp, rows_like
 from .layers import apply_rope, compute_dtype, dense_init, head_rmsnorm, zeros
 
 NEG = -1e30
@@ -34,12 +40,36 @@ def init(gen, cfg, dtype, device, lead: tuple = ()):
     return p
 
 
+def _whole_heads(t, n_heads: int):
+    """A DTensor projection ``t [B, S, H*hd]`` split over ``model`` into
+    pieces that cut heads (qwen3-4b's 8 kv heads over 16) is gathered over
+    ``model``, so the heads reshape splits no head; any other ``t`` as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    names = list(mesh.mesh_dim_names)
+    if "model" not in names:
+        return t
+    mi = names.index("model")
+    if t.placements[mi] != Shard(t.ndim - 1) or n_heads % mesh.size(mi) == 0:
+        return t
+    want = list(t.placements)
+    want[mi] = Replicate()
+    return t.redistribute(mesh, want)
+
+
 def _project_qkv(p, cfg, x, positions, theta):
     b, s, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["w_q_in"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["w_k_in"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["w_v_in"]).reshape(b, s, cfg.n_kv_heads, hd)
+    def heads(name, n):
+        return _whole_heads(x @ gather_fsdp(p[name]), n).reshape(b, s, n, hd)
+
+    q = heads("w_q_in", cfg.n_heads)
+    k = heads("w_k_in", cfg.n_kv_heads)
+    v = heads("w_v_in", cfg.n_kv_heads)
     if cfg.qk_norm:
         q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -53,18 +83,24 @@ def _project_qkv(p, cfg, x, positions, theta):
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, cfg=None):
+def _sdpa(q, k, v, mask, cfg=None, *, head_dim: int | None = None,
+          reduce_scores=None):
     """q: [B,S,H,D]; k,v: [B,T,KV,D]; mask: [B or 1, 1, S, T] additive.
 
     Dense path — used for decode (S=1) and small shapes; longer sequences go
     through :func:`_sdpa_chunked`.  Scores in float32, probabilities cast to
-    ``v.dtype`` before the PV product, as the JAX package does."""
+    ``v.dtype`` before the PV product, as the JAX package does.  On a
+    device's shard of the head dim, ``head_dim`` is the whole one (the
+    scale) and ``reduce_scores`` sums the partial scores over the shards."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     groups = h // kv
     q = q.reshape(b, s, kv, groups, hd)
     acc = compute_dtype(q.dtype)
-    scores = torch.einsum("bskgd,btkd->bkgst", q.to(acc), k.to(acc)) / np.sqrt(hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.to(acc), k.to(acc))
+    if reduce_scores is not None:
+        scores = reduce_scores(scores)
+    scores = scores / np.sqrt(head_dim or hd)
     scores = scores + mask[:, :, None, :, :]     # broadcast over groups
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
@@ -140,6 +176,81 @@ def _sdpa_chunked(q, k, v, cfg=None, *, causal: bool, window: int | None,
     return out.reshape(b, s, h, hd).to(v.dtype)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _on_shards(core, q, k, v):
+    """``core(q, k, v, **kw) -> out [B,S,H,D]`` on each device's shards of
+    DTensors ``q [B,S,H,D]``, ``k, v [B,T,KV,D]`` (batch over the same
+    axes), ``out`` placed as ``q``.  Plain tensors go to ``core`` as they
+    are.
+
+    Heads over ``model``: q's local heads take the kv heads of their
+    groups, k's own shard, or their slice of a replicated k (qwen3-4b's 8
+    kv heads do not split 16 ways).  A head dim over ``model`` (a decode
+    cache whose kv heads do not split) takes q to the same layout, sums the
+    partial scores over ``model`` and brings the output back to q's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return core(q, k, v)
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    q_pl = list(q.placements)
+    kw = {}
+    if mi is not None and k.placements[mi] == Shard(3):
+        want = list(q_pl)
+        want[mi] = Shard(3)
+        q = q.redistribute(mesh, want)
+        group = (mesh, mi)
+        kw = {"head_dim": q.shape[-1],
+              "reduce_scores": lambda t: funcol.all_reduce(t, "sum", group)}
+    elif mi is not None and q_pl[mi] == Replicate() != k.placements[mi]:
+        rep = list(k.placements)          # k's heads split, q's do not
+        rep[mi] = Replicate()
+        k, v = k.redistribute(mesh, rep), v.redistribute(mesh, rep)
+    # A replicated k, v of which each device takes its heads' slice gets a
+    # gradient partial over ``model``.
+    slice_kv = (mi is not None and q_pl[mi] == Shard(2)
+                and k.placements[mi] == Replicate())
+    kv_grad = None
+    if slice_kv:
+        kv_grad = list(k.placements)
+        kv_grad[mi] = Partial()
+    # The local gradients go back contiguous: DTensor describes a shard by
+    # the global tensor's strides, and a permuted local gradient (an
+    # einsum's) would not view as the next operation asks.
+    ql = _ContiguousGrad.apply(q.to_local())
+    kl, vl = (_ContiguousGrad.apply(t.to_local(grad_placements=kv_grad))
+              for t in (k, v))
+    if slice_kv:
+        h, kv = q.shape[2], k.shape[2]
+        hl, g = ql.shape[2], h // kv
+        first = mesh.get_coordinate()[mi] * hl
+        lo, hi = first // g, (first + hl - 1) // g + 1
+        if hl % (hi - lo):
+            raise ValueError(f"{hl} local heads do not group over kv heads "
+                             f"{lo}..{hi - 1}")
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    out = core(ql, kl, vl, **kw).contiguous()
+    out = DTensor.from_local(out, mesh, q.placements, run_check=False)
+    if tuple(out.placements) != tuple(q_pl):
+        out = out.redistribute(mesh, q_pl)
+    return out
+
+
 def causal_mask(s: int, window: int | None, dtype=torch.float32, device=None):
     i = torch.arange(s, device=device)[:, None]
     j = torch.arange(s, device=device)[None, :]
@@ -166,13 +277,15 @@ def forward(p, cfg, x, positions, *, window=None, theta=None, mask=None,
         if mask is None:
             mask = (causal_mask(s, window, device=x.device) if cfg.causal
                     else full_mask(s, device=x.device))
-        out = _sdpa(q, k, v, mask, cfg)
+        out = _on_shards(lambda q, k, v, **kw: _sdpa(q, k, v, mask, cfg, **kw),
+                         q, k, v)
     else:
-        out = _sdpa_chunked(q, k, v, cfg, causal=cfg.causal, window=window,
-                            skip_uncausal=skip_uncausal)
+        out = _on_shards(lambda q, k, v: _sdpa_chunked(
+            q, k, v, cfg, causal=cfg.causal, window=window,
+            skip_uncausal=skip_uncausal), q, k, v)
     out = constrain(out, ("batch", None, "model", None))
     b = x.shape[0]
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["w_o_out"]
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ gather_fsdp(p["w_o_out"])
     return out, (k, v)
 
 
@@ -180,6 +293,22 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device, lead: tuple = ()):
     shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_slot(c, t: int, new) -> None:
+    """``c[:, t] = new`` (``c [B,T,KV,D]``, ``new [B,KV,D]``); a DTensor
+    cache is written on each device's shard, ``new`` first placed as the
+    cache's slot (its sequence axis must not be split)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(c, DTensor):
+        c[:, t] = new
+        return
+    if Shard(1) in c.placements:
+        raise NotImplementedError("a decode cache split over its sequence axis")
+    want = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+            for p in c.placements]
+    c.to_local()[:, t] = new.redistribute(c.device_mesh, want).to_local()
 
 
 def decode_step(p, cfg, x, cache, pos: int, *, window=None, theta=None,
@@ -195,12 +324,13 @@ def decode_step(p, cfg, x, cache, pos: int, *, window=None, theta=None,
     """
     theta = cfg.rope_theta if theta is None else theta
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = rows_like(lambda n: torch.full((n, 1), pos, dtype=torch.int32,
+                                               device=x.device), x)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions, theta)
     t = cache["k"].shape[1]
     write = pos % t if ring else pos
-    cache["k"][:, write] = k_new[:, 0]
-    cache["v"][:, write] = v_new[:, 0]
+    _write_slot(cache["k"], write, k_new[:, 0])
+    _write_slot(cache["v"], write, v_new[:, 0])
     j = torch.arange(t, device=x.device)
     if ring:
         allow = (j <= pos) | (pos >= t)
@@ -209,6 +339,7 @@ def decode_step(p, cfg, x, cache, pos: int, *, window=None, theta=None,
         if window is not None:
             allow &= (pos - j) < window
     mask = torch.where(allow, 0.0, NEG)[None, None, None, :]       # [1,1,1,T]
-    out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["w_o_out"]
+    out = _on_shards(lambda q, k, v, **kw: _sdpa(q, k, v, mask, cfg, **kw),
+                     q, cache["k"], cache["v"])
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ gather_fsdp(p["w_o_out"])
     return out, cache

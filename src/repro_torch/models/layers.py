@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import join
+
 
 def normal(gen, shape, dtype, scale: float, device):
     """``N(0, 1) · scale`` drawn in float32, then cast to ``dtype``; with
@@ -72,7 +74,7 @@ def apply_rope(x, positions, theta: float):
     d = x.shape[-1]
     acc = compute_dtype(x.dtype)
     freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device, acc)  # [D/2]
-    ang = positions[..., None].to(acc) * freqs                     # [..., S, D/2]
+    ang = positions[..., None].to(acc) * join(freqs, positions)    # [..., S, D/2]
     cos = torch.cos(ang)[..., None, :]                             # [..., S, 1, D/2]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(acc), 2, dim=-1)

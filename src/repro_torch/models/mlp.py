@@ -1,7 +1,7 @@
 """Gated MLP (SwiGLU / GeGLU)."""
 from __future__ import annotations
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, gather_fsdp
 from .layers import activation, dense_init
 
 
@@ -14,7 +14,7 @@ def init(gen, d_model: int, d_ff: int, dtype, device, lead: tuple = ()):
 
 
 def forward(p, x, act: str = "silu"):
-    g = activation(act)(x @ p["w_gate_in"])
-    h = g * (x @ p["w_up_in"])
+    g = activation(act)(x @ gather_fsdp(p["w_gate_in"]))
+    h = g * (x @ gather_fsdp(p["w_up_in"]))
     h = constrain(h, ("batch", None, "model"))
-    return h @ p["w_down_out"]
+    return h @ gather_fsdp(p["w_down_out"])

@@ -121,6 +121,25 @@ def _grads(loss, leaves) -> list:
                                     materialize_grads=True))
 
 
+def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Rows of microbatch ``i`` of ``n``: the i-th consecutive slice of a
+    plain batch; of a DTensor batch sharded over its rows, the i-th slice
+    of each device's own rows (no collective; every row still falls in
+    exactly one microbatch, so the mean gradient is the same)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        loc = v.to_local()
+        if loc.shape[0] % n:
+            raise ValueError(f"a device's {loc.shape[0]} rows do not split "
+                             f"into {n} microbatches")
+        size = loc.shape[0] // n
+        return DTensor.from_local(loc[i * size:(i + 1) * size], v.device_mesh,
+                                  v.placements, run_check=False)
+    size = v.shape[0] // n
+    return v[i * size:(i + 1) * size]
+
+
 def make_train_step(model: Model, *, lr: float = 3e-4, grad_clip: float = 1.0,
                     weight_decay: float = 0.1, remat_policy: str = "nothing",
                     lr_fn=None, microbatch: int = 1):
@@ -130,7 +149,8 @@ def make_train_step(model: Model, *, lr: float = 3e-4, grad_clip: float = 1.0,
     ``init_train_state`` or ``model.load_params``), which take gradients.
 
     ``microbatch > 1`` splits the batch into that many consecutive slices
-    (the JAX package's reshape), takes each slice's gradients in turn,
+    (the JAX package's reshape; of a DTensor batch, each device's rows
+    split locally: :func:`_microbatch`), takes each slice's gradients in turn,
     accumulates them in float32 and divides, then casts to the parameters'
     dtypes.  ``metrics`` holds ``loss`` (a float32 0-d tensor on the
     device), ``lr`` (the step's rate) and ``grad_norm`` (the clip's global
@@ -146,12 +166,10 @@ def make_train_step(model: Model, *, lr: float = 3e-4, grad_clip: float = 1.0,
             if n % microbatch:
                 raise ValueError(f"batch {n} does not split into {microbatch} "
                                  "microbatches")
-            size = n // microbatch
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             losses = []
             for i in range(microbatch):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                mb = {k: _microbatch(v, i, microbatch) for k, v in batch.items()}
                 loss_i = loss_fn(mb)
                 for a, g in zip(acc, _grads(loss_i, leaves)):
                     a.add_(g.float())

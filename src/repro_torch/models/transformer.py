@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, gather_fsdp, join, rows_like
 from . import attention, mlp, moe, ssm, xlstm
 from .layers import activation, compute_dtype, dense_init, embed_init, rmsnorm, zeros
 
@@ -128,9 +128,13 @@ def _attn_moe_init(gen, cfg, dtype, device, lead, model_axis):
 # ---------------------------------------------------------------------------
 
 def _sp(cfg, x):
+    """The residual stream's sharding: batch over (pod, data), and the
+    sequence over ``model`` under ``sp_residual``.  A row-parallel
+    product's partial sums (attention's and the MLP's outputs) are reduced
+    here before they join the stream."""
     if cfg.sp_residual:
         return constrain(x, ("batch", "model", None))
-    return x
+    return constrain(x, ("batch", None, None))
 
 
 def _attn_mlp_fwd(p, cfg, x, positions, window, theta):
@@ -138,8 +142,9 @@ def _attn_mlp_fwd(p, cfg, x, positions, window, theta):
     h, _ = attention.forward(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
                              positions, window=window, theta=theta,
                              skip_uncausal=cfg.attn_skip_uncausal)
-    x = x + h
-    x = x + mlp.forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    x = x + _sp(cfg, h)
+    x = x + _sp(cfg, mlp.forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                 cfg.act))
     return x
 
 
@@ -147,7 +152,7 @@ def _attn_moe_fwd(p, cfg, x, positions, model_axis):
     x = _sp(cfg, x)
     h, _ = attention.forward(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
                              positions, skip_uncausal=cfg.attn_skip_uncausal)
-    x = x + h
+    x = x + _sp(cfg, h)
     y, aux = moe.forward(p["moe"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps),
                          model_axis=model_axis)
     return x + y, aux
@@ -174,12 +179,113 @@ def _attn_decode(p, cfg, x, c, pos, window=None, theta=None, ring=False):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     o, _ = attention.decode_step(p["attn"], cfg, h, c, pos, window=window,
                                  theta=theta, ring=ring)
-    return x + o
+    return x + _sp(cfg, o)
 
 
 def _attn_mlp_decode(p, cfg, x, c, pos, window=None, theta=None, ring=False):
     x = _attn_decode(p, cfg, x, c, pos, window, theta, ring)
-    return x + mlp.forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return x + _sp(cfg, mlp.forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                    cfg.act))
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy, and its vocab-parallel form on DTensors
+# ---------------------------------------------------------------------------
+
+def _cross_entropy(logits, t):
+    """``logsumexp - gold`` of each position, in the logits' float type; no
+    nll_loss (it has no deterministic CUDA kernel).  DTensor logits with the
+    vocabulary over ``model`` take :class:`_VocabParallelCE` on each
+    device's shard (DTensor's own logsumexp would gather the vocabulary)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(logits, DTensor):
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        return lse - gold
+    mesh = logits.device_mesh
+    names = list(mesh.mesh_dim_names)
+    vdim = logits.ndim - 1
+    mi = names.index("model") if "model" in names else None
+    if mi is None or logits.placements[mi] != Shard(vdim):
+        logits = logits.redistribute(mesh, t.placements)      # rows as t's
+        return DTensor.from_local(
+            _cross_entropy(logits.to_local(), t.to_local()), mesh,
+            t.placements, run_check=False)
+    want = list(logits.placements)
+    if [p for i, p in enumerate(want) if i != mi] != [
+            p for i, p in enumerate(t.placements) if i != mi]:
+        raise ValueError(f"logits {logits.placements} and targets "
+                         f"{t.placements} split their rows differently")
+    loc = logits.to_local()
+    offset = mesh.get_coordinate()[mi] * loc.shape[-1]
+    ce = _VocabParallelCE.apply(loc, t.to_local(), offset, (mesh, mi))
+    return DTensor.from_local(ce, mesh, t.placements, run_check=False)
+
+
+def _embedding(tokens, table):
+    """Rows of ``table`` at ``tokens``.  A DTensor table with the vocabulary
+    over ``model`` is gathered over the other axes, each device looks up
+    the tokens of its vocabulary slice (zeros elsewhere) and the partial
+    rows are summed over ``model``: the JAX package's one-hot product
+    (each shard its vocab slice, then a psum)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens.long(), table)
+    mesh = table.device_mesh
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    if mi is None or table.placements[mi] != Shard(0):
+        table = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+        return DTensor.from_local(F.embedding(tokens.to_local().long(),
+                                              table.to_local()),
+                                  mesh, tokens.placements, run_check=False)
+    want = [Replicate()] * mesh.ndim
+    want[mi] = Shard(0)
+    # Each device's gradient holds its own rows' lookups: partial over the
+    # axes that split the tokens, summed (reduce-scattered) on the way back.
+    grad_pl = [Shard(0) if i == mi else
+               Partial() if isinstance(p, Shard) else Replicate()
+               for i, p in enumerate(tokens.placements)]
+    loc = table.redistribute(mesh, want).to_local(grad_placements=grad_pl)
+    idx = tokens.to_local().long() - mesh.get_coordinate()[mi] * loc.shape[0]
+    inside = (idx >= 0) & (idx < loc.shape[0])
+    rows = F.embedding(idx.clamp(0, loc.shape[0] - 1), loc)
+    rows = rows * inside[..., None].to(rows.dtype)
+    out_pl = list(tokens.placements)
+    out_pl[mi] = Partial()
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Cross-entropy of logits whose vocabulary is split over a mesh axis:
+    each device holds ``l [..., V/m]`` from ``offset``; the max, the sum of
+    exponentials and the gold logit are all-reduced over the axis (three
+    collectives of one value a position), the gradient is local."""
+
+    @staticmethod
+    def forward(ctx, l, t, offset: int, group):
+        import torch.distributed._functional_collectives as funcol
+
+        m = funcol.all_reduce(l.detach().amax(-1), "max", group)
+        e = torch.exp(l - m[..., None])
+        sumexp = funcol.all_reduce(e.sum(-1), "sum", group)
+        idx = t.long() - offset
+        inside = (idx >= 0) & (idx < l.shape[-1])
+        idx = idx.clamp(0, l.shape[-1] - 1)
+        g = torch.gather(l, -1, idx[..., None])[..., 0]
+        gold = funcol.all_reduce(torch.where(inside, g, torch.zeros_like(g)),
+                                 "sum", group)
+        ctx.save_for_backward(e, sumexp, idx, inside)
+        return m + torch.log(sumexp) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, sumexp, idx, inside = ctx.saved_tensors
+        grad = e / sumexp[..., None]
+        grad.scatter_add_(-1, idx[..., None], -inside.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -319,16 +425,16 @@ class Model(nn.Module):
         # nonzero product plus zeros is exact, so a gather gives the same
         # bits.
         cfg = self.cfg
-        x = F.embedding(tokens.long(), params["embed"])
+        x = _embedding(tokens, params["embed"])
         if cfg.embed_scale:
-            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
-                                 device=x.device)
+            x = x * join(torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
+                                      device=x.device), x)
         return constrain(x, ("batch", None, None))
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].T
-        return x @ params["w_unembed_in"]
+            return x @ gather_fsdp(params["embed"]).T
+        return x @ gather_fsdp(params["w_unembed_in"])
 
     # ---- forward (train/prefill) -------------------------------------------
     def forward(self, params, batch, *, remat_policy: str = "nothing"):
@@ -351,8 +457,8 @@ class Model(nn.Module):
         else:
             x = self._embed(params, batch["tokens"])
         b, s = x.shape[:2]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None].expand(b, s)
+        positions = rows_like(lambda n: torch.arange(
+            s, dtype=torch.int32, device=x.device)[None].expand(n, s), x)
         x = self._run_stack(params, x, positions, remat_policy)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
@@ -447,9 +553,7 @@ class Model(nn.Module):
             # logsumexp - gold, in float32; no nll_loss (it has no
             # deterministic CUDA kernel).
             logits = self._logits(params, h).to(compute_dtype(h.dtype))
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
-            ce = lse - gold
+            ce = _cross_entropy(logits, t)
             return torch.sum(ce if w is None else ce * w)
 
         body = _remat(chunk_ce, "nothing")
@@ -463,7 +567,7 @@ class Model(nn.Module):
             tot = part if tot is None else tot + part
         count = (torch.sum(weights) if weights is not None
                  else torch.tensor(float(targets.numel()), device=hidden.device))
-        loss = tot / torch.clamp(count, min=1.0)
+        loss = tot / torch.clamp(join(count, tot), min=1.0)
         if self._last_aux is not None:
             loss = loss + 0.01 * self._last_aux
         return loss

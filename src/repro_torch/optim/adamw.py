@@ -93,8 +93,12 @@ def tree_map(fn, tree, *rest):
 
 def pieces(t: torch.Tensor) -> list[torch.Tensor]:
     """Views of ``t`` along its leading axis, each of at most PIECE values
-    (one row at least); ``t`` itself when it is that small."""
-    if t.numel() <= PIECE or t.ndim == 0:
+    (one row at least); ``t`` itself when it is that small, or a DTensor
+    (a device holds its shard, and a split along a sharded axis would
+    gather it)."""
+    from torch.distributed.tensor import DTensor
+
+    if t.numel() <= PIECE or t.ndim == 0 or isinstance(t, DTensor):
         return [t]
     rows = max(1, PIECE // max(t[0].numel(), 1))
     return list(torch.split(t, rows, dim=0))
@@ -102,7 +106,8 @@ def pieces(t: torch.Tensor) -> list[torch.Tensor]:
 
 def adamw_init(params) -> AdamWState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor parameter's moments are placed as it is.
+        return torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=0, mu=tree_map(zeros, params),
                       nu=tree_map(zeros, params))
 

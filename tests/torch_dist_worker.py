@@ -271,8 +271,89 @@ def forward_bits(rank, inputs):
             "specs": sorted({str(s) for s in calls})}
 
 
+def dtensor_model(kv_heads):
+    """The reduced qwen3-4b (``kv_heads`` kv heads: 2, or 1 for a head
+    count the 2-wide model axis does not split), its seeded parameters and
+    a batch, the same on every rank (and in the parent)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-4b"), n_kv_heads=kv_heads)
+    model = M.build_model(cfg, model_axis=2)
+    params = _plain(M.init_params(model, seed=0, device="cpu"))
+    batch = M.demo_batch(cfg, 4, 16, seed=3, device="cpu")
+    return cfg, model, params, batch
+
+
+def _placed(params, batch, mesh):
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim.adamw import tree_map
+
+    dparams = tree_map(lambda t: t.requires_grad_(),
+                       sh.distribute(params, sh.param_pspecs(params, mesh), mesh))
+    dbatch = sh.distribute(batch, sh.input_pspecs(batch, mesh), mesh)
+    return dparams, dbatch
+
+
+def _full(tree):
+    from repro_torch.optim.adamw import tree_map
+
+    return tree_map(lambda t: t.detach().full_tensor(), tree)
+
+
+def dtensor_steps(rank, inputs):
+    """The reduced qwen3-4b on DTensors over 2x2 (params by
+    ``param_pspecs``, the batch by ``input_pspecs``, the active mesh set):
+    the loss and its gradients, one ``make_train_step`` at microbatch 2;
+    and with one kv head, the loss, gradients and two decode steps on a
+    cache placed by ``cache_pspecs``.  Every result gathered whole."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    out = {}
+    for kv in (2, 1):
+        cfg, model, params, batch = dtensor_model(kv)
+        dparams, dbatch = _placed(params, batch, mesh)
+        sh.set_active_mesh(mesh)
+        try:
+            loss = model.loss(dparams, dbatch)
+            grads = torch.autograd.grad(loss, tree_leaves(dparams))
+            res = {"loss": loss.detach().full_tensor(),
+                   "grads": _full(tree_unflatten(dparams, grads))}
+            if kv == 2:
+                step = M.make_train_step(model, lr=1e-3, microbatch=2)
+                new, opt, met = step(dparams, adamw_init(dparams), dbatch, 0)
+                res["step_params"] = _full(new)
+                res["step_loss"] = met["loss"].full_tensor()
+            else:
+                cache = model.init_cache(4, 8, device="cpu")
+                dcache = sh.distribute(cache, sh.cache_pspecs(cache, mesh, 4), mesh)
+                tokens = sh.distribute(batch["tokens"][:, :1],
+                                       sh.input_pspecs({"t": batch["tokens"]},
+                                                       mesh)["t"], mesh)
+                with torch.no_grad():
+                    logits = [model.decode_step(dparams, dcache, tokens, pos)[0]
+                              .full_tensor() for pos in (0, 1)]
+                res["decode_logits"] = logits
+                res["decode_cache"] = _full(dcache)
+                res["cache_placements"] = str(dcache["layers"]["k"].placements)
+        finally:
+            sh.set_active_mesh(None)
+        out[f"kv{kv}"] = res
+    return out
+
+
 CHECKS = {f.__name__: f for f in (psum_equal, psum_mixed, psum_ef_steps, bf16,
-                                  field_stacked, elastic, constrain, forward_bits)}
+                                  field_stacked, elastic, constrain, forward_bits,
+                                  dtensor_steps)}
 
 
 def run(rank: int, world: int, store_path: str, out_dir: str, checks: list,
