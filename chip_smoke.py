@@ -29,10 +29,12 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    its band holds (WIDE_INV_SHAPES, the striped route) byte for byte;
 4. the main path at the paper's Hurricane-ISABEL size (three fields of
    100×500×500 float32, synthetic, from a seed): ``NeurLZ(device="cuda")
-   .compress`` at rel_eb 1e-3 in strict mode, ``save``, ``Archive.open``,
-   ``decode_all``; the 1× bound is checked on every field, and for one field
-   the engine's encoder helpers are run again from the archived weights and
-   the decode must equal the encoder's final field bit for bit; then
+   .compress`` at rel_eb 1e-3 in strict mode, at MAIN_EPOCHS epochs (cut
+   from the paper's 100 to keep the run inside its time limit), ``save``,
+   ``Archive.open``, ``decode_all``; the 1× bound is checked on every
+   field, and for one field the engine's encoder helpers are run again from
+   the archived weights and the decode must equal the encoder's final field
+   bit for bit; then
    torch.profiler traces of ten training steps, with the plain-PyTorch
    conv backward and with the kernels, in turns (plain, kernel, kernel,
    plain): step time, kernels per step, device-busy share; and of ten
@@ -520,12 +522,14 @@ def conv_bwd_phase(dev, report: dict) -> dict:
 
 
 GROUP_F = 3    # fields of the batched path's one group
-# Training cut from the paper's 100 epochs on five paths, so that the run
+# Training cut from the paper's 100 epochs on every path, so that the run
 # stays inside its time limit on a slower host (the batched and streaming
 # paths at DURABLE_EPOCHS, held against the durable path's serial reference
 # at the same epochs; 10 until the recurrent families' lm and train rows
 # came; the streaming path at 100 until the dist phase came, when one run
-# took 1,181 s of the 1,200); the main path trains 100.
+# took 1,181 s of the 1,200; the main path at 100 until the dryrun phase
+# came, when one run took 1,136 s).
+MAIN_EPOCHS = 50
 LORENZO_EPOCHS = 5
 DURABLE_EPOCHS = 5
 
@@ -2176,9 +2180,9 @@ def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
     A forward counts 2 operations per matmul parameter per token (bf16,
     on the tensor cores), the head over the S - 1 predicted positions, and
     the sequence-mixing products, which the port computes in float32 (TF32
-    off, so on the CUDA cores): attention's two [S, S] products per layer
-    (the scores are float32 and, to keep the count simple, the
-    probabilities' product with V too; the port computes the full square);
+    off, so on the CUDA cores): attention's [S, S] scores per layer (the
+    port computes the full square; the probabilities are cast to the
+    model's dtype for their product with V, which counts as bf16);
     Mamba2's C·B scores and their product with x over the full square of
     each 128-position chunk, and the state's read C·S and write B⊗x;
     mLSTM's q·k scores and their product with v over the full square of a
@@ -2190,9 +2194,9 @@ def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
 
     def attn_mlp():
         hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        scores = 2 * batch * h * seq * seq * hd
         return (2 * tokens * (d * h * hd + 2 * d * kv * hd + h * hd * d
-                              + 3 * d * cfg.d_ff),
-                4 * batch * h * seq * seq * hd)
+                              + 3 * d * cfg.d_ff) + scores, scores)
 
     if cfg.family == "hybrid":
         di = cfg.ssm_expand * d
@@ -2229,6 +2233,26 @@ def recompute_skipped_flops(cfg, batch: int, seq: int) -> float:
     if cfg.family != "dense":
         raise ValueError(f"no recompute reckoning for the {cfg.family} family")
     return 2.0 * batch * seq * cfg.d_model * cfg.d_ff * cfg.n_layers
+
+
+def train_bound(cfg, model) -> dict:
+    """The least time of one TRAIN_BATCH x TRAIN_SEQ step under full remat:
+    train_step_flops's products (for the dense family less those the
+    recomputation skips, recompute_skipped_flops) at the card's peak for
+    their type, plus the optimizer's least traffic: the gradient read
+    twice (the clip's norm, the update), both float32 moments and the
+    parameter read and written."""
+    bf16, f32 = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    skipped = (recompute_skipped_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+               if cfg.family == "dense" else 0.0)
+    bf16 -= skipped
+    adam_bytes = sum(p.numel() * (4 * p.element_size() + 16)
+                     for p in model.parameters())
+    parts = {"matmul": bf16 / BF16_FLOPS * 1e3, "f32": f32 / F32_FLOPS * 1e3,
+             "optimizer": adam_bytes / HBM_BYTES_PER_S * 1e3}
+    return {"bf16_flops": bf16, "f32_flops": f32, "recompute_skipped": skipped,
+            "optimizer_bytes": adam_bytes, "parts_ms": parts,
+            "bound_ms": sum(parts.values())}
 
 
 def _train_full_width(dev, check, arch: str) -> dict:
@@ -2301,24 +2325,20 @@ def _train_full_width(dev, check, arch: str) -> dict:
 
     step_ms = statistics.median(walls[1:]) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops, f32_flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    # The optimizer's least traffic: the gradient read twice (the clip's
-    # norm, the update), both moments and the parameter read and written.
-    adam_bytes = sum(p.numel() * (2 * p.element_size() + 8 + 8 + 2 * p.element_size())
-                     for p in model.parameters())
-    bound_ms = (flops / BF16_FLOPS + f32_flops / F32_FLOPS
-                + adam_bytes / HBM_BYTES_PER_S) * 1e3
+    tb = train_bound(cfg, model)
+    bound_ms = tb["bound_ms"]
     out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "n_params": n_params,
            "param_bytes": param_bytes, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "steps": TRAIN_STEPS, "init_s": init_s, "losses": losses,
            "grad_norms": norms, "lrs": lrs, "step_wall_ms": [w * 1e3 for w in walls],
            "step_ms_median_2_8": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-           "flops_per_step": flops, "f32_flops_per_step": f32_flops,
-           "optimizer_bytes_per_step": adam_bytes,
-           "bound_ms": bound_ms, "bound_matmul_ms": flops / BF16_FLOPS * 1e3,
-           "bound_f32_ms": f32_flops / F32_FLOPS * 1e3,
-           "bound_optimizer_ms": adam_bytes / HBM_BYTES_PER_S * 1e3,
+           "flops_per_step": tb["bf16_flops"], "f32_flops_per_step": tb["f32_flops"],
+           "recompute_skipped_flops": tb["recompute_skipped"],
+           "optimizer_bytes_per_step": tb["optimizer_bytes"],
+           "bound_ms": bound_ms, "bound_matmul_ms": tb["parts_ms"]["matmul"],
+           "bound_f32_ms": tb["parts_ms"]["f32"],
+           "bound_optimizer_ms": tb["parts_ms"]["optimizer"],
            "x_bound": step_ms / bound_ms,
            "device_ms_per_step": busy,
            "device_kernels_per_step": len(events) / n_traced,
@@ -3060,33 +3080,33 @@ def _dryrun_qwen(dev, check) -> dict:
     peak = torch.cuda.max_memory_allocated()
     real = counter.result()
     check(bool(torch.isfinite(met["loss"])), "the counted step's loss is not finite")
-    # The train path's hand-reckoned bound (_train_full_width's).
-    bf16, f32 = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    adam_bytes = sum(p.numel() * (4 * p.element_size() + 16)
-                     for p in model.parameters())
-    hand_ms = (bf16 / BF16_FLOPS + f32 / F32_FLOPS
-               + adam_bytes / HBM_BYTES_PER_S) * 1e3
+    tb = train_bound(cfg, model)     # the train path's bound
     del params, opt, met, step_fn, model
     _lm_free()
 
-    skipped = recompute_skipped_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    flops_gap = real["product_flops"] / (bf16 + f32 - skipped) - 1.0
+    reckoned = tb["bf16_flops"] + tb["f32_flops"]   # less the skipped recompute
+    skipped = tb["recompute_skipped"]
+    flops_gap = real["product_flops"] / reckoned - 1.0
     counted_peak = args_bytes + real["peak_bytes"]
     peak_gap = counted_peak / peak - 1.0
-    terms = rl.roofline_terms(real["flops"], real["bytes"], 0.0)
+    terms = rl.roofline_terms(
+        real["flops"], real["bytes"], 0.0,
+        f32_flops=real["product_flops_by_dtype"].get("float32", 0.0))
     roof_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
     out = {"product_flops": real["product_flops"], "flops": real["flops"],
            "bytes": real["bytes"], "transcendentals": real["transcendentals"],
-           "train_step_flops": bf16 + f32, "recompute_skipped": skipped,
-           "raw_flops_gap": real["product_flops"] / (bf16 + f32) - 1.0,
+           "train_step_flops": reckoned + skipped, "recompute_skipped": skipped,
+           "raw_flops_gap": real["product_flops"] / (reckoned + skipped) - 1.0,
            "flops_gap": flops_gap,
            "args_bytes": args_bytes, "base_allocated": base,
            "counted_peak": counted_peak, "max_memory_allocated": peak,
            "peak_gap": peak_gap, "step_ms": step_s * 1e3,
-           "roofline_ms": roof_ms, "roofline": terms, "hand_bound_ms": hand_ms}
+           "product_flops_by_dtype": real["product_flops_by_dtype"],
+           "roofline_ms": roof_ms, "roofline": terms,
+           "hand_bound_ms": tb["bound_ms"]}
     check(abs(flops_gap) <= DRYRUN_FLOPS_TOL,
           f"counted product FLOPs {real['product_flops']:.4e} vs "
-          f"train_step_flops {bf16 + f32:.4e} less the recompute's skipped "
+          f"train_step_flops {reckoned + skipped:.4e} less the recompute's skipped "
           f"{skipped:.4e} ({flops_gap:+.2%})")
     check(abs(peak_gap) <= DRYRUN_PEAK_TOL,
           f"counted peak {counted_peak:,} vs max_memory_allocated {peak:,} "
@@ -3310,8 +3330,8 @@ def _run(args, shape, dev, smi, report, t_start, dry_procs) -> int:
               "(the shape is never cut)")
     # Each path runs with the counts set to 0 just before it; every kernel
     # of a path must have launched in it.
-    main_launches, main_kept = timed("main", main_path, dev, fields, args.epochs,
-                                     report)
+    main_launches, main_kept = timed("main", main_path, dev, fields,
+                                     min(args.epochs, MAIN_EPOCHS), report)
     cut = min(args.epochs, DURABLE_EPOCHS)
     lorenzo_launches, lorenzo_kept = timed(
         "lorenzo", lorenzo_path, dev, fields, min(args.epochs, LORENZO_EPOCHS),

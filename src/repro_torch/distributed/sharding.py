@@ -30,6 +30,7 @@ import re
 from collections.abc import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 
 class P(tuple):
@@ -193,8 +194,6 @@ def placements(spec: tuple, mesh) -> tuple:
     spec puts tensor dim ``d`` on that axis, else ``Replicate()``.  A dim
     over several axes (``("pod", "data")``) is split in the mesh's order, as
     DTensor splits it; another order raises."""
-    from torch.distributed.tensor import Replicate, Shard
-
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for d, ax in enumerate(spec):
@@ -232,8 +231,6 @@ def to_named(tree_specs, mesh):
 def distribute(tree, tree_specs, mesh):
     """``distribute_tensor`` of every leaf of a tensor tree by its spec;
     every rank passes the same full tensors."""
-    from torch.distributed.tensor import distribute_tensor
-
     def put(path, leaf):
         node = tree_specs
         for k in path:
@@ -300,8 +297,6 @@ def field_sharding(mesh, num_fields: int) -> tuple:
 def shard_fields(tree, mesh):
     """``distribute_tensor`` of every leading-``F``-axis leaf of a stacked
     tree (a tensor or a nested dict of them)."""
-    from torch.distributed.tensor import distribute_tensor
-
     def put(_, leaf):
         return distribute_tensor(leaf, mesh, field_sharding(mesh, leaf.shape[0]))
     return _map_with_path(put, tree)
@@ -312,8 +307,6 @@ def join(t, ref):
     frequencies, a count), joined to ``ref``'s DTensor arithmetic as a
     replicated DTensor on ``ref``'s mesh; ``t`` itself where ``ref`` is a
     plain tensor (or ``t`` a DTensor already)."""
-    from torch.distributed.tensor import DTensor, Replicate
-
     if not isinstance(ref, DTensor) or isinstance(t, DTensor):
         return t
     mesh = ref.device_mesh
@@ -326,8 +319,6 @@ def gather_fsdp(w):
     FSDP all-gather before its use; its gradient is reduce-scattered back),
     so a product keeps the batch's rows where they are and splits only
     over ``model`` (tensor parallel); any other ``w`` as it is."""
-    from torch.distributed.tensor import DTensor, Replicate
-
     if not isinstance(w, DTensor):
         return w
     names = list(w.device_mesh.mesh_dim_names)
@@ -341,8 +332,6 @@ def rows_like(make, ref):
     rows: ``n = ref.shape[0]`` for a plain ``ref``; for a DTensor, each
     device makes its own rows, split over the axes that split ``ref``'s
     rows and replicated over the rest."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
     if not isinstance(ref, DTensor):
         return make(ref.shape[0])
     if any(isinstance(p, Shard) and p.dim == 1 for p in ref.placements):
@@ -370,8 +359,6 @@ def constrain(x, spec: tuple):
     mesh = _Active.mesh
     if mesh is None:
         return x
-    from torch.distributed.tensor import DTensor
-
     if not isinstance(x, DTensor):
         return x
     resolved = []

@@ -82,16 +82,21 @@ def fwd_flops(y_shape, cin: int) -> float:
 
 
 def _report_fwd(name: str, x, w, b, y) -> None:
-    cost.report(name, fwd_flops(y.shape, x.shape[-1]), cost.nbytes(x, w, b, y))
+    if not cost.listening():
+        return
+    cost.report(name, fwd_flops(y.shape, x.shape[-1]), cost.nbytes(x, w, b, y),
+                x.dtype)
 
 
 def _report_bwd(name: str, g, y, x, w, relu: bool, dx, dw, db) -> None:
     """dgrad (with ``dx``) and wgrad each as many operations as the
     forward; the bound's bytes: x, w, g (and y for the ReLU mask) read
     once, dx, dw, db written once."""
+    if not cost.listening():
+        return
     flops = fwd_flops(g.shape, x.shape[-1]) * (2 if dx is not None else 1)
     cost.report(name, flops,
-                cost.nbytes(x, w, g, y if relu else None, dx, dw, db))
+                cost.nbytes(x, w, g, y if relu else None, dx, dw, db), x.dtype)
 
 
 def _windows(ho: int, wo: int, stride: int):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 _sinks: list = []
 _lock = threading.Lock()
@@ -26,14 +27,13 @@ _lock = threading.Lock()
 def shape_only(*ts) -> bool:
     """Whether a call on these tensors is a dry run's: any of them a
     ``FakeTensor`` or on the meta device."""
-    from torch._subclasses.fake_tensor import FakeTensor
-
     return any(isinstance(t, FakeTensor) or t.device.type == "meta"
                for t in ts if isinstance(t, torch.Tensor))
 
 
 def add_sink(sink) -> None:
-    """``sink(name, flops, nbytes)`` hears every report until removed."""
+    """``sink(name, flops, nbytes, dtype)`` hears every report until
+    removed."""
     with _lock:
         _sinks.append(sink)
 
@@ -43,9 +43,17 @@ def remove_sink(sink) -> None:
         _sinks.remove(sink)
 
 
-def report(name: str, flops: float, nbytes: float) -> None:
+def listening() -> bool:
+    """Whether any sink hears reports (a wrapper skips reckoning its cost
+    when none does)."""
+    return bool(_sinks)
+
+
+def report(name: str, flops: float, nbytes: float, dtype: torch.dtype) -> None:
+    """A call of kernel ``name``: ``flops`` product operations on operands
+    of ``dtype``, ``nbytes`` of its bound."""
     for sink in list(_sinks):
-        sink(name, flops, nbytes)
+        sink(name, flops, nbytes, dtype)
 
 
 def nbytes(*ts) -> int:

@@ -160,11 +160,13 @@ def _record(cost: dict, lower_s: float, args_bytes: int, args_tree, out_tree
                  "collective_hbm_bytes": cost["collective_hbm_bytes"],
                  "transcendentals": cost["transcendentals"],
                  "product_flops_per_device": cost["product_flops"],
+                 "product_flops_by_dtype": cost["product_flops_by_dtype"],
                  "kernels": cost["by_kernel"]},
         "collectives": coll,
         "roofline": rl.roofline_terms(
             flops, nbytes, coll["wire_bytes"],
-            nvlink_wire_bytes=coll["wire_by_link"].get("nvlink", 0.0)),
+            nvlink_wire_bytes=coll["wire_by_link"].get("nvlink", 0.0),
+            f32_flops=cost["product_flops_by_dtype"].get("float32", 0.0)),
     }
 
 
@@ -454,7 +456,7 @@ def main(argv=None) -> int:
     for item in todo:
         by_mesh.setdefault((item[0], item[1]), []).append(item)
     for (mesh_name, multi), items in by_mesh.items():
-        mesh = make_fake_world(multi_pod=multi, device_type="cpu")
+        mesh = make_fake_world(multi_pod=multi)
         try:
             for _, _, arch, shape, tag, path in items:
                 print(f"=== {tag} ===", flush=True)

@@ -112,8 +112,7 @@ def make_host_mesh(device="cuda"):
                                  mesh_dim_names=AXES)
 
 
-def make_fake_world(*, multi_pod: bool = False, sizes: dict | None = None,
-                    device_type: str = "cpu"):
+def make_fake_world(*, multi_pod: bool = False, sizes: dict | None = None):
     """A ``DeviceMesh`` of the production shape (or ``sizes``, axis name ->
     size) over a fake process group of as many ranks, this process rank 0.
 
@@ -133,4 +132,4 @@ def make_fake_world(*, multi_pod: bool = False, sizes: dict | None = None,
         n *= int(v)
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
     ranks = torch.arange(n).reshape(tuple(int(v) for v in shape.values()))
-    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(shape))
+    return DeviceMesh("cpu", ranks, mesh_dim_names=tuple(shape))

@@ -8,7 +8,9 @@ sees each ATen operation as it runs, on real tensors or on meta ones (the
 dry run's), and keeps ``hlo_cost``'s conventions:
 
   * a product is 2·M·N·K (``mm``, ``bmm``, ``addmm``, ``baddbmm``, which
-    einsum lowers to, and ``convolution`` and its backward);
+    einsum lowers to, and ``convolution`` and its backward), also kept by
+    its operands' dtype (``product_flops_by_dtype``: the roofline rates
+    float32 products at the float32 peak);
   * an elementwise operation is 1 a result element; a transcendental one
     1 plus 1 transcendental; a reduction 1 an operand element;
   * bytes are operands plus results of every operation that launches a
@@ -57,6 +59,7 @@ import threading
 import weakref
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels import cost as kernel_cost
@@ -262,7 +265,8 @@ def _product_flops(name: str, args, out) -> float:
 class OpCounter(TorchDispatchMode):
     """Counts what runs under it (``with OpCounter() as c: step()``), per
     device; :meth:`result` gives ``hlo_cost.analyze``'s keys plus
-    ``peak_bytes``, ``by_kernel`` and ``product_flops``."""
+    ``peak_bytes``, ``by_kernel``, ``product_flops`` and
+    ``product_flops_by_dtype``."""
 
     def __init__(self):
         super().__init__()
@@ -271,6 +275,7 @@ class OpCounter(TorchDispatchMode):
         self._views: set = set()      # operations seen returning a view
         self.flops = 0.0
         self.product_flops = 0.0
+        self.product_flops_by_dtype: dict[str, float] = {}
         self.transcendentals = 0.0
         self.bytes = 0.0
         self.collective_hbm_bytes = 0.0   # of ``bytes``: the collectives'
@@ -317,11 +322,18 @@ class OpCounter(TorchDispatchMode):
                 self._patched = None
 
     # ---- the port's kernels ----------------------------------------------
-    def _kernel(self, name: str, flops: float, nbytes: float) -> None:
-        if _in_propagation():
-            return
+    def _product(self, flops: float, dtype: torch.dtype) -> None:
         self.flops += flops
         self.product_flops += flops
+        key = str(dtype).removeprefix("torch.")
+        self.product_flops_by_dtype[key] = (
+            self.product_flops_by_dtype.get(key, 0.0) + flops)
+
+    def _kernel(self, name: str, flops: float, nbytes: float,
+                dtype: torch.dtype) -> None:
+        if _in_propagation():
+            return
+        self._product(flops, dtype)
         self.bytes += nbytes
         k = self.by_kernel.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
         k["calls"] += 1
@@ -349,8 +361,6 @@ class OpCounter(TorchDispatchMode):
     # ---- every ATen operation --------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        from torch.distributed.tensor import DTensor
-
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         if _in_propagation():
@@ -392,9 +402,8 @@ class OpCounter(TorchDispatchMode):
         self.bytes += sum(_bytes(t) for t in ins) + sum(_bytes(t) for t in outs)
         base = name.rstrip("_")
         if base in _PRODUCTS:
-            f = _product_flops(base, args, outs[0] if outs else None)
-            self.flops += f
-            self.product_flops += f
+            self._product(_product_flops(base, args, outs[0] if outs else None),
+                          ins[0].dtype)
         elif base in _TRANSCENDENTAL:
             n = sum(t.numel() for t in outs)
             self.flops += n
@@ -454,6 +463,7 @@ class OpCounter(TorchDispatchMode):
             "collective_wire_by_link": coll["wire_by_link"],
             "peak_bytes": self.peak,
             "product_flops": self.product_flops,
+            "product_flops_by_dtype": dict(self.product_flops_by_dtype),
             "by_kernel": {k: dict(v) for k, v in self.by_kernel.items()},
         }
 

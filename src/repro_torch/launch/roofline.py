@@ -3,7 +3,8 @@
 The port of the JAX package's ``repro/launch/roofline.py``.  Three terms
 per (arch × shape × mesh), in seconds:
 
-    compute    = FLOPs_per_device / PEAK_FLOPS        (bf16 dense)
+    compute    = FLOPs_per_device / PEAK_FLOPS        (bf16 dense),
+                 its float32 products at PEAK_FLOPS_F32
     memory     = bytes_per_device / HBM_BW            (HBM bandwidth)
     collective = Σ wire_bytes of each collective / its group's link
 
@@ -33,6 +34,7 @@ and dispatch waste.
 from __future__ import annotations
 
 PEAK_FLOPS = 989e12      # bf16 dense, tensor cores / GPU
+PEAK_FLOPS_F32 = 67e12   # float32 outside the tensor cores (TF32 off) / GPU
 HBM_BW = 3.35e12         # bytes/s / GPU
 HBM_BYTES = 80e9         # bytes / GPU
 NVLINK_BW = 450e9        # bytes/s a direction / GPU, inside a node
@@ -81,10 +83,14 @@ def collective_bytes(collectives) -> dict:
 
 def roofline_terms(flops_per_device: float, bytes_per_device: float,
                    wire_bytes_per_device: float, *,
-                   nvlink_wire_bytes: float = 0.0) -> dict:
-    """The three terms; ``nvlink_wire_bytes`` of the wire bytes ran inside
-    a node (NVLINK_BW), the rest across nodes (NET_BW)."""
-    compute = flops_per_device / PEAK_FLOPS
+                   nvlink_wire_bytes: float = 0.0,
+                   f32_flops: float = 0.0) -> dict:
+    """The three terms; ``f32_flops`` of the FLOPs are float32 products
+    (PEAK_FLOPS_F32), the rest run at PEAK_FLOPS; ``nvlink_wire_bytes`` of
+    the wire bytes ran inside a node (NVLINK_BW), the rest across nodes
+    (NET_BW)."""
+    compute = ((flops_per_device - f32_flops) / PEAK_FLOPS
+               + f32_flops / PEAK_FLOPS_F32)
     memory = bytes_per_device / HBM_BW
     coll = ((wire_bytes_per_device - nvlink_wire_bytes) / NET_BW
             + nvlink_wire_bytes / NVLINK_BW)

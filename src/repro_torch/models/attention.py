@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..distributed.sharding import constrain, gather_fsdp, rows_like
 from .layers import apply_rope, compute_dtype, dense_init, head_rmsnorm, zeros
@@ -45,8 +47,6 @@ def _whole_heads(t, n_heads: int):
     pieces that cut heads (qwen3-4b's 8 kv heads over 16) is gathered over
     ``model``, so the heads reshape splits no head; any other ``t`` as it
     is."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
     if not isinstance(t, DTensor):
         return t
     mesh = t.device_mesh
@@ -199,12 +199,8 @@ def _on_shards(core, q, k, v):
     kv heads do not split 16 ways).  A head dim over ``model`` (a decode
     cache whose kv heads do not split) takes q to the same layout, sums the
     partial scores over ``model`` and brings the output back to q's."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-
     if not isinstance(q, DTensor):
         return core(q, k, v)
-    import torch.distributed._functional_collectives as funcol
-
     mesh = q.device_mesh
     names = list(mesh.mesh_dim_names)
     mi = names.index("model") if "model" in names else None
@@ -299,8 +295,6 @@ def _write_slot(c, t: int, new) -> None:
     """``c[:, t] = new`` (``c [B,T,KV,D]``, ``new [B,KV,D]``); a DTensor
     cache is written on each device's shard, ``new`` first placed as the
     cache's slot (its sequence axis must not be split)."""
-    from torch.distributed.tensor import DTensor, Shard
-
     if not isinstance(c, DTensor):
         c[:, t] = new
         return

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import device as device_lib
 from ..configs.base import ModelConfig, ShapeConfig
@@ -126,8 +127,6 @@ def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
     plain batch; of a DTensor batch sharded over its rows, the i-th slice
     of each device's own rows (no collective; every row still falls in
     exactly one microbatch, so the mean gradient is the same)."""
-    from torch.distributed.tensor import DTensor
-
     if isinstance(v, DTensor):
         loc = v.to_local()
         if loc.shape[0] % n:

@@ -33,8 +33,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..distributed.sharding import constrain, gather_fsdp, join, rows_like
@@ -197,8 +199,6 @@ def _cross_entropy(logits, t):
     nll_loss (it has no deterministic CUDA kernel).  DTensor logits with the
     vocabulary over ``model`` take :class:`_VocabParallelCE` on each
     device's shard (DTensor's own logsumexp would gather the vocabulary)."""
-    from torch.distributed.tensor import DTensor, Shard
-
     if not isinstance(logits, DTensor):
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
@@ -229,8 +229,6 @@ def _embedding(tokens, table):
     the tokens of its vocabulary slice (zeros elsewhere) and the partial
     rows are summed over ``model``: the JAX package's one-hot product
     (each shard its vocab slice, then a psum)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-
     if not isinstance(table, DTensor):
         return F.embedding(tokens.long(), table)
     mesh = table.device_mesh
@@ -266,8 +264,6 @@ class _VocabParallelCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, l, t, offset: int, group):
-        import torch.distributed._functional_collectives as funcol
-
         m = funcol.all_reduce(l.detach().amax(-1), "max", group)
         e = torch.exp(l - m[..., None])
         sumexp = funcol.all_reduce(e.sum(-1), "sum", group)

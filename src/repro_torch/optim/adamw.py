@@ -13,6 +13,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 class AdamW:
@@ -96,8 +97,6 @@ def pieces(t: torch.Tensor) -> list[torch.Tensor]:
     (one row at least); ``t`` itself when it is that small, or a DTensor
     (a device holds its shard, and a split along a sharded axis would
     gather it)."""
-    from torch.distributed.tensor import DTensor
-
     if t.numel() <= PIECE or t.ndim == 0 or isinstance(t, DTensor):
         return [t]
     rows = max(1, PIECE // max(t[0].numel(), 1))

@@ -136,6 +136,20 @@ def test_fake_grouped_conv_counts_the_kernel():
     # Only the kernels' products: the plain version's nine GEMMs a layer
     # would be bmm/mm operations.
     assert got["product_flops"] == 3 * fwd
+    assert got["product_flops_by_dtype"] == {"float32": 3 * fwd}
+
+
+def test_products_by_operand_dtype():
+    """Products are kept by their operands' dtype, for the roofline's
+    float32 rate; an elementwise operation is in no product count."""
+    a16, b16 = torch.randn(32, 64, dtype=torch.bfloat16), torch.randn(
+        64, 16, dtype=torch.bfloat16)
+    a32, b32 = a16.float(), b16.float()
+    got = op_cost.analyze(lambda: (a16 @ b16, torch.bmm(a32[None], b32[None]) + 1))
+    mm = 2.0 * 32 * 64 * 16
+    assert got["product_flops_by_dtype"] == {"bfloat16": mm, "float32": mm}
+    assert got["product_flops"] == 2 * mm
+    assert got["flops"] == 2 * mm + 32 * 16
 
 
 @pytest.fixture(scope="module")
@@ -170,26 +184,32 @@ def test_fake_world_counts_one_device(fake_world):
     assert c["wire_bytes"] == 4000 * roofline.wire_factor("all-reduce", 16)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("early_stop", [True, False])
-def test_train_step_products(early_stop):
+def test_train_step_products(early_stop, dtype):
     """The reduced qwen3-4b's train step under full remat counts four
     forwards' products (the run, its recomputation, the backward's two a
     product), less what torch's checkpoint does not recompute: with its
     early stop (the default) a layer's recomputation ends at the last
-    tensor the backward needs, before the MLP's down projection."""
+    tensor the backward needs, before the MLP's down projection.  In
+    bfloat16 only attention's scores and their gradients are float32
+    products: the probabilities meet V in the model's dtype."""
+    import dataclasses
+
     import torch.utils.checkpoint as ck
 
     from repro_torch import configs
     from repro_torch.models import model as M
 
-    cfg = configs.get_reduced("qwen3-4b")
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-4b"), dtype=dtype)
     b, s = 2, 32
     model = M.build_model(cfg, model_axis=1)
     params, opt = M.init_train_state(model, seed=0, device="cpu")
     step = M.make_train_step(model, remat_policy="nothing")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32)}
     with ck.set_checkpoint_early_stop(early_stop):
-        got = op_cost.analyze(step, params, opt, batch, 0)["product_flops"]
+        res = op_cost.analyze(step, params, opt, batch, 0)
+    got = res["product_flops"]
     d, hd, h, kv, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     layer = 2 * b * s * (d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f)
     attn = 4 * b * h * s * s * hd
@@ -198,3 +218,7 @@ def test_train_step_products(early_stop):
     if early_stop:
         want -= cfg.n_layers * 2 * b * s * d * f
     assert got == want
+    f32 = 4 * cfg.n_layers * 2 * b * h * s * s * hd
+    assert res["product_flops_by_dtype"] == (
+        {"float32": want} if dtype == "float32"
+        else {"bfloat16": want - f32, "float32": f32})

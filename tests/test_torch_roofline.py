@@ -3,7 +3,8 @@
 ``wire_factor`` equals the reference's for every collective kind and group
 size; ``model_flops`` equals the reference's for every dry-run cell, each
 package using its own configs; ``roofline_terms`` divides by the H100
-constants (its seconds times them give the inputs back), and a group's
+constants (its seconds times them give the inputs back; float32 products
+at the float32 peak), and a group's
 link is NVLink inside a node of 8 consecutive ranks, the network across.
 """
 import pytest
@@ -48,8 +49,16 @@ def test_roofline_terms_give_back_their_inputs(flops, nbytes, wire):
     assert t["dominant"] == max(terms, key=terms.get)
 
 
+@pytest.mark.parametrize("flops,f32", [(1e15, 0.0), (1e15, 2.5e13), (4e12, 4e12)])
+def test_float32_products_at_the_float32_peak(flops, f32):
+    t = rl.roofline_terms(flops, 0.0, 0.0, f32_flops=f32)
+    assert t["compute_s"] == pytest.approx(
+        (flops - f32) / rl.PEAK_FLOPS + f32 / rl.PEAK_FLOPS_F32, rel=1e-12)
+
+
 def test_h100_constants_and_links():
     assert (rl.PEAK_FLOPS, rl.HBM_BW, rl.HBM_BYTES) == (989e12, 3.35e12, 80e9)
+    assert rl.PEAK_FLOPS_F32 == 67e12
     assert (rl.NVLINK_BW, rl.NET_BW, rl.NODE_SIZE) == (450e9, 50e9, 8)
     assert rl.link_of(range(8)) == "nvlink"
     assert rl.link_of(range(8, 16)) == "nvlink"
