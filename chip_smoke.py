@@ -134,13 +134,16 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     the next train step bit for bit;
 13. the dryrun path, the port's dry run (``repro_torch.launch.dryrun``):
     (a) ``python -m repro_torch.launch.dryrun`` for qwen3-4b's train_4k,
-    prefill_32k and decode_32k and the ``neurlz_enhance`` cell on the
-    16x16 and 2x16x16 meshes (fake worlds of 256 and 512 ranks, meta
-    tensors, no card), one process a cell, started right after the build
-    at the lowest CPU priority and waited for here; each must be ``ok``,
-    and prints its peak bytes a device, compute, memory and collective ms
-    and dominant term; (b) one real qwen3-4b train step at the train
-    path's size on the card under ``launch.op_cost``'s counter: its
+    prefill_32k and decode_32k, the ``neurlz_enhance`` cell,
+    granite-moe-3b-a800m's train_4k (expert-parallel), xlstm-350m's
+    decode_32k and zamba2-7b's long_500k (its KV cache split over its
+    sequence) on the 16x16 and 2x16x16 meshes (fake worlds of 256 and 512
+    ranks, meta tensors, no card), one process a cell, started right after
+    the build at the lowest CPU priority and waited for here; each must be
+    ``ok``, and prints its peak bytes a device, compute, memory and
+    collective ms and dominant term; (b) one real train step of qwen3-4b,
+    then one of granite-moe-3b-a800m, at the train path's size on the card
+    under ``launch.op_cost``'s counter: its
     product FLOPs within DRYRUN_FLOPS_TOL of ``train_step_flops`` less the
     recompute torch's checkpoint skips (``recompute_skipped_flops``), its
     counted peak within DRYRUN_PEAK_TOL of ``max_memory_allocated``, its
@@ -2171,7 +2174,8 @@ TRAIN_GRAD_TOL = 1e-4     # |Δ| <= TRAIN_GRAD_TOL * max|CPU leaf|
 TRAIN_LOSSY_EB = 1e-5     # the lossy drill's weight bound (relative)
 
 
-def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+def train_step_flops(cfg, batch: int, seq: int,
+                     model_axis: int = 1) -> tuple[float, float]:
     """``(bf16, float32)`` operations of the products of one step under
     full remat: the layers' forward twice (the run and its recomputation),
     the head's forward twice (each loss chunk recomputed), and the
@@ -2187,16 +2191,23 @@ def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
     each 128-position chunk, and the state's read C·S and write B⊗x;
     mLSTM's q·k scores and their product with v over the full square of a
     chunk, and q·S and the S update; sLSTM's recurrent product per step.
+    A MoE layer counts attention, the router (float32, over the experts
+    padded to ``model_axis``), every capacity slot of every expert through
+    its FFN (each group's ``cap`` slots an expert, filled or not: the
+    port's batched products run them all) and the shared experts; its
+    dense first layers count as dense layers of ``d_ff_dense``, and its
+    head multiplies the padded vocabulary.
     Elementwise work (gates, the depthwise conv, norms, the normalisers'
     vector products) is not counted."""
     tokens = batch * seq
     d = cfg.d_model
+    vocab = cfg.vocab_size
 
-    def attn_mlp():
+    def attn_mlp(d_ff):
         hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         scores = 2 * batch * h * seq * seq * hd
         return (2 * tokens * (d * h * hd + 2 * d * kv * hd + h * hd * d
-                              + 3 * d * cfg.d_ff) + scores, scores)
+                              + 3 * d * d_ff) + scores, scores)
 
     if cfg.family == "hybrid":
         di = cfg.ssm_expand * d
@@ -2206,7 +2217,7 @@ def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
         mamba = (2 * tokens * (d * (2 * di + 2 * n + h) + di * d),
                  2 * tokens * cl * (n + h * pdim) + 4 * tokens * n * h * pdim)
         units = cfg.n_layers // cfg.hybrid_attn_every
-        blocks = [(cfg.n_layers - units, mamba), (units, attn_mlp())]
+        blocks = [(cfg.n_layers - units, mamba), (units, attn_mlp(cfg.d_ff))]
     elif cfg.family == "ssm":
         du, h = 2 * d, cfg.n_heads
         hk = du // h
@@ -2217,22 +2228,43 @@ def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
         slstm = (2 * tokens * (4 * d * d + 3 * d * dff), 8 * tokens * d * (d // h))
         units = cfg.n_layers // cfg.xlstm_slstm_every
         blocks = [(cfg.n_layers - units, mlstm), (units, slstm)]
+    elif cfg.family == "moe":
+        from repro_torch.models import moe
+        from repro_torch.models.transformer import pad_vocab
+
+        e_pad = moe.padded_experts(cfg.n_experts, model_axis)
+        g_sz = min(cfg.moe_group_size, seq)
+        slots = tokens // g_sz * e_pad * moe.capacity(cfg, g_sz)
+        f = cfg.d_ff_expert
+        attn_b, attn_f = attn_mlp(0)
+        layer = (attn_b + 2 * slots * 3 * d * f
+                 + 2 * tokens * 3 * d * cfg.n_shared_experts * f,
+                 attn_f + 2 * tokens * d * e_pad)
+        nd = cfg.first_dense_layers
+        blocks = [(cfg.n_layers - nd, layer), (nd, attn_mlp(cfg.d_ff_dense))]
+        vocab = pad_vocab(cfg.vocab_size)
     else:
-        blocks = [(cfg.n_layers, attn_mlp())]
-    bf16 = sum(n * b for n, (b, _) in blocks) + 2 * batch * (seq - 1) * d * cfg.vocab_size
+        blocks = [(cfg.n_layers, attn_mlp(cfg.d_ff))]
+    bf16 = sum(n * b for n, (b, _) in blocks) + 2 * batch * (seq - 1) * d * vocab
     f32 = sum(n * f for n, (_, f) in blocks)
     return 4.0 * bf16, 4.0 * f32
 
 
 def recompute_skipped_flops(cfg, batch: int, seq: int) -> float:
-    """Operations of train_step_flops's second forward that a dense step
-    does not run: torch's non-reentrant checkpoint stops recomputing a
-    layer after the last tensor its backward needs, so the layer's last
+    """Operations of train_step_flops's second forward that a step does
+    not run: torch's non-reentrant checkpoint stops recomputing a layer
+    after the last tensor its backward needs, so a dense layer's last
     product, the MLP's down projection (2 · tokens · d_model · d_ff), is
-    not run again.  Dense family only."""
-    if cfg.family != "dense":
-        raise ValueError(f"no recompute reckoning for the {cfg.family} family")
-    return 2.0 * batch * seq * cfg.d_model * cfg.d_ff * cfg.n_layers
+    not run again.  A MoE layer's last saved tensors are its aux loss's,
+    after every product, so it recomputes them all; only the MoE family's
+    dense first layers skip their down projection.  Dense and MoE
+    families only."""
+    if cfg.family == "dense":
+        return 2.0 * batch * seq * cfg.d_model * cfg.d_ff * cfg.n_layers
+    if cfg.family == "moe":
+        return (2.0 * batch * seq * cfg.d_model * cfg.d_ff_dense
+                * cfg.first_dense_layers)
+    raise ValueError(f"no recompute reckoning for the {cfg.family} family")
 
 
 def train_bound(cfg, model) -> dict:
@@ -2244,7 +2276,7 @@ def train_bound(cfg, model) -> dict:
     parameter read and written."""
     bf16, f32 = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     skipped = (recompute_skipped_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-               if cfg.family == "dense" else 0.0)
+               if cfg.family in ("dense", "moe") else 0.0)
     bf16 -= skipped
     adam_bytes = sum(p.numel() * (4 * p.element_size() + 16)
                      for p in model.parameters())
@@ -2965,7 +2997,10 @@ def dist_path(dev, report: dict) -> dict:
 
 
 DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
-                ("qwen3-4b", "decode_32k"), ("neurlz_enhance", None))
+                ("qwen3-4b", "decode_32k"), ("neurlz_enhance", None),
+                ("granite-moe-3b-a800m", "train_4k"), ("xlstm-350m", "decode_32k"),
+                ("zamba2-7b", "long_500k"))
+DRYRUN_COUNTED = ("qwen3-4b", "granite-moe-3b-a800m")   # (b): real steps
 DRYRUN_MESHES = ("single", "multi")     # 16x16, 2x16x16
 DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
 DRYRUN_WAIT_S = 600        # the longest the phase waits for (a) to end
@@ -3044,13 +3079,14 @@ def _dryrun_records(procs, check) -> dict:
     return recs
 
 
-def _dryrun_qwen(dev, check) -> dict:
-    """(b) One real qwen3-4b train step at the train path's size (full
-    width, bf16, TRAIN_BATCH x TRAIN_SEQ, full remat) on the card, counted
-    (after one warm step); its product FLOPs against train_step_flops, its
-    counted peak against max_memory_allocated; then the same step lowered
-    by ``lower_cell`` on a fake 1x1 world (meta tensors): the same FLOPs
-    and bytes, no collective."""
+def _dryrun_counted(dev, check, arch: str) -> dict:
+    """(b) One real ``arch`` train step at the train path's size (full
+    width and depth, bf16, TRAIN_BATCH x TRAIN_SEQ, full remat) on the
+    card, counted (after one warm step); its product FLOPs against
+    train_step_flops less recompute_skipped_flops, its counted peak
+    against max_memory_allocated; then the same step lowered by
+    ``lower_cell`` on a fake 1x1 world (meta tensors): the same FLOPs and
+    bytes, no collective."""
     import torch
     import torch.distributed as dist
     from repro_torch import configs
@@ -3060,7 +3096,7 @@ def _dryrun_qwen(dev, check) -> dict:
     from repro_torch.launch import roofline as rl
     from repro_torch.models import model as M
 
-    cfg = configs.get_config("qwen3-4b")
+    cfg = configs.get_config(arch)
     model = M.build_model(cfg, model_axis=1)
     params, opt = M.init_train_state(model, seed=0, device=dev)
     step_fn = M.make_train_step(model, remat_policy="nothing")
@@ -3080,7 +3116,7 @@ def _dryrun_qwen(dev, check) -> dict:
     peak = torch.cuda.max_memory_allocated()
     real = counter.result()
     check(bool(torch.isfinite(met["loss"])), "the counted step's loss is not finite")
-    tb = train_bound(cfg, model)     # the train path's bound
+    tb = train_bound(cfg, model)     # as the train path's bound
     del params, opt, met, step_fn, model
     _lm_free()
 
@@ -3093,7 +3129,8 @@ def _dryrun_qwen(dev, check) -> dict:
         real["flops"], real["bytes"], 0.0,
         f32_flops=real["product_flops_by_dtype"].get("float32", 0.0))
     roof_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
-    out = {"product_flops": real["product_flops"], "flops": real["flops"],
+    out = {"arch": arch, "product_flops": real["product_flops"],
+           "flops": real["flops"],
            "bytes": real["bytes"], "transcendentals": real["transcendentals"],
            "train_step_flops": reckoned + skipped, "recompute_skipped": skipped,
            "raw_flops_gap": real["product_flops"] / (reckoned + skipped) - 1.0,
@@ -3180,7 +3217,8 @@ def _dryrun_enhance(dev, record: dict, check) -> dict:
 
 def dryrun_path(dev, procs, report: dict) -> dict:
     """The dry run: (a) the processes of :func:`start_dryrun`, (b)
-    ``_dryrun_qwen``, (c) ``_dryrun_enhance``.  Its kernels: the grouped
+    ``_dryrun_counted`` of each DRYRUN_COUNTED arch, (c)
+    ``_dryrun_enhance``.  Its kernels: the grouped
     conv forward and backward of (c)."""
     import torch
     from repro_torch import kernels
@@ -3195,20 +3233,22 @@ def dryrun_path(dev, procs, report: dict) -> dict:
     wait_s = time.perf_counter() - t
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    qwen = _dryrun_qwen(dev, check)
-    print(f"dryrun qwen3-4b on the card (bf16, {TRAIN_BATCH} x {TRAIN_SEQ}, full "
-          f"remat): counted product FLOPs {qwen['product_flops']:.4e} vs "
-          f"train_step_flops {qwen['train_step_flops']:.4e} less the "
-          f"recompute's skipped {qwen['recompute_skipped']:.4e} "
-          f"({qwen['flops_gap']:+.3%}; raw {qwen['raw_flops_gap']:+.3%}); "
-          f"counted peak {qwen['counted_peak']:,} B vs "
-          f"max_memory_allocated {qwen['max_memory_allocated']:,} "
-          f"({qwen['peak_gap']:+.3%}); step {qwen['step_ms']:.2f} ms counted, "
-          f"roofline {qwen['roofline_ms']:.2f} ms ({qwen['roofline']['dominant']}), "
-          f"the train path's bound {qwen['hand_bound_ms']:.2f} ms; "
-          f"fake 1x1 equal ({qwen['fake_1x1']['flops']:.6e} FLOPs, "
-          f"{qwen['fake_1x1']['bytes']:.6e} B, lowered in "
-          f"{qwen['fake_1x1']['lower_s']} s)", flush=True)
+    counted = {}
+    for arch in DRYRUN_COUNTED:
+        r = counted[arch] = _dryrun_counted(dev, check, arch)
+        print(f"dryrun {arch} on the card (bf16, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"full remat): counted product FLOPs {r['product_flops']:.4e} vs "
+              f"train_step_flops {r['train_step_flops']:.4e} less the "
+              f"recompute's skipped {r['recompute_skipped']:.4e} "
+              f"({r['flops_gap']:+.3%}; raw {r['raw_flops_gap']:+.3%}); "
+              f"counted peak {r['counted_peak']:,} B vs "
+              f"max_memory_allocated {r['max_memory_allocated']:,} "
+              f"({r['peak_gap']:+.3%}); step {r['step_ms']:.2f} ms counted, "
+              f"roofline {r['roofline_ms']:.2f} ms ({r['roofline']['dominant']}), "
+              f"the train bound {r['hand_bound_ms']:.2f} ms; "
+              f"fake 1x1 equal ({r['fake_1x1']['flops']:.6e} FLOPs, "
+              f"{r['fake_1x1']['bytes']:.6e} B, lowered in "
+              f"{r['fake_1x1']['lower_s']} s)", flush=True)
     enh = _dryrun_enhance(dev, recs[_dryrun_tag("neurlz_enhance", None, "single")],
                           check)
     print(f"dryrun neurlz_enhance on the card ({enh['blocks']} blocks, "
@@ -3217,7 +3257,7 @@ def dryrun_path(dev, procs, report: dict) -> dict:
           f"launches {enh['launches']}; step {enh['step_ms']:.2f} ms counted",
           flush=True)
     launches = kernels.launch_counts()
-    out = {"records": recs, "wait_s": wait_s, "qwen3_4b": qwen,
+    out = {"records": recs, "wait_s": wait_s, "counted": counted,
            "neurlz_enhance": enh, "launches": launches,
            "device_peak_bytes": torch.cuda.max_memory_allocated(),
            "seconds": time.perf_counter() - t_path}

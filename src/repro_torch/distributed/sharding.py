@@ -30,7 +30,8 @@ import re
 from collections.abc import Mapping
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 
 class P(tuple):
@@ -339,6 +340,86 @@ def rows_like(make, ref):
     pl = [p if p == Shard(0) else Replicate() for p in ref.placements]
     return DTensor.from_local(make(ref.to_local().shape[0]), ref.device_mesh,
                               pl, run_check=False)
+
+
+class ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: DTensor describes a
+    shard by the global tensor's strides, and a permuted local gradient
+    (an einsum's) would not view as the next operation asks."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _row_placements(t) -> tuple:
+    """``t``'s placements of its rows alone: split where it splits dim 0,
+    replicated over every other axis."""
+    return tuple(p if p == Shard(0) else Replicate() for p in t.placements)
+
+
+def whole_rows(t):
+    """A DTensor placed as its rows alone (:func:`_row_placements`: a
+    sequence split over ``model`` gathered whole); any other ``t`` as it
+    is."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = _row_placements(t)
+    return t if tuple(t.placements) == pl else t.redistribute(t.device_mesh, pl)
+
+
+def on_rows(fn, rows, weights=()):
+    """``fn(*rows, *weights)`` on each device's rows, for a computation
+    that mixes nothing across a batch row (a recurrence over time, a
+    convolution along the sequence, a chunked scan).
+
+    Plain tensors go to ``fn`` as they are.  DTensor ``rows`` (batch
+    first) are placed as the first one's rows (split where it splits dim
+    0, gathered and replicated over every other axis), each ``weights``
+    DTensor is replicated, and ``fn`` runs on the local tensors; its
+    result (a tensor or a tuple) comes back placed as the rows.  A row's
+    gradient is placed as the row, a weight's is partial over the axes
+    that split the rows (each device saw its own rows)."""
+    ref = next((t for t in rows if isinstance(t, DTensor)), None)
+    if ref is None:
+        return fn(*rows, *weights)
+    mesh = ref.device_mesh
+    pl = _row_placements(ref)
+    wgrad = [Partial() if p == Shard(0) else Replicate() for p in pl]
+    rep = (Replicate(),) * mesh.ndim
+
+    def row(t):
+        if tuple(t.placements) != pl:
+            t = t.redistribute(mesh, pl)
+        return ContiguousGrad.apply(t.to_local(grad_placements=pl))
+
+    def weight(w):
+        if not isinstance(w, DTensor):
+            return w
+        if tuple(w.placements) != rep:
+            w = w.redistribute(mesh, rep)
+        return ContiguousGrad.apply(w.to_local(grad_placements=wgrad))
+
+    out = fn(*(row(t) for t in rows), *(weight(w) for w in weights))
+
+    def place(o):
+        return DTensor.from_local(o.contiguous(), mesh, pl, run_check=False)
+    return tuple(place(o) for o in out) if isinstance(out, tuple) else place(out)
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)`` in place; a DTensor ``dst`` (a decode cache) is
+    written on each device's shard, ``src`` first placed as ``dst``."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
 
 
 def set_active_mesh(mesh) -> None:

@@ -21,7 +21,8 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..distributed.sharding import constrain, gather_fsdp, rows_like
+from ..distributed.sharding import (ContiguousGrad, constrain, gather_fsdp,
+                                    rows_like)
 from .layers import apply_rope, compute_dtype, dense_init, head_rmsnorm, zeros
 
 NEG = -1e30
@@ -84,14 +85,18 @@ def _project_qkv(p, cfg, x, positions, theta):
 
 
 def _sdpa(q, k, v, mask, cfg=None, *, head_dim: int | None = None,
-          reduce_scores=None):
+          reduce_scores=None, seq_slice=None, seq_reduce=None):
     """q: [B,S,H,D]; k,v: [B,T,KV,D]; mask: [B or 1, 1, S, T] additive.
 
     Dense path — used for decode (S=1) and small shapes; longer sequences go
     through :func:`_sdpa_chunked`.  Scores in float32, probabilities cast to
     ``v.dtype`` before the PV product, as the JAX package does.  On a
     device's shard of the head dim, ``head_dim`` is the whole one (the
-    scale) and ``reduce_scores`` sums the partial scores over the shards."""
+    scale) and ``reduce_scores`` sums the partial scores over the shards.
+    On a device's shard of the keys (``k, v`` positions ``seq_slice =
+    (start, n)`` of the mask's), ``seq_reduce(t, op)`` all-reduces over the
+    shards: the softmax is combined by log-sum-exp (the max, then the
+    rescaled numerators and denominators summed)."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     groups = h // kv
@@ -101,10 +106,20 @@ def _sdpa(q, k, v, mask, cfg=None, *, head_dim: int | None = None,
     if reduce_scores is not None:
         scores = reduce_scores(scores)
     scores = scores / np.sqrt(head_dim or hd)
+    if seq_slice is not None:
+        mask = mask[..., seq_slice[0]:seq_slice[0] + seq_slice[1]]
     scores = scores + mask[:, :, None, :, :]     # broadcast over groups
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
-    return out.reshape(b, s, h, hd)
+    if seq_reduce is None:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+        return out.reshape(b, s, h, hd)
+    m = seq_reduce(scores.amax(-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    den = seq_reduce(e.sum(-1), "sum")                           # [b,k,g,s]
+    num = seq_reduce(torch.einsum("bkgst,btkd->bskgd", e.to(v.dtype), v)
+                     .to(acc), "sum")
+    out = num / den.permute(0, 3, 1, 2)[..., None]
+    return out.to(v.dtype).reshape(b, s, h, hd)
 
 
 def _sdpa_chunked(q, k, v, cfg=None, *, causal: bool, window: int | None,
@@ -176,18 +191,6 @@ def _sdpa_chunked(q, k, v, cfg=None, *, causal: bool, window: int | None,
     return out.reshape(b, s, h, hd).to(v.dtype)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose gradient is made contiguous."""
-
-    @staticmethod
-    def forward(ctx, t):
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def _on_shards(core, q, k, v):
     """``core(q, k, v, **kw) -> out [B,S,H,D]`` on each device's shards of
     DTensors ``q [B,S,H,D]``, ``k, v [B,T,KV,D]`` (batch over the same
@@ -198,7 +201,10 @@ def _on_shards(core, q, k, v):
     groups, k's own shard, or their slice of a replicated k (qwen3-4b's 8
     kv heads do not split 16 ways).  A head dim over ``model`` (a decode
     cache whose kv heads do not split) takes q to the same layout, sums the
-    partial scores over ``model`` and brings the output back to q's."""
+    partial scores over ``model`` and brings the output back to q's.
+    Keys over an axis (a decode cache split over its sequence, q
+    replicated there) give ``core`` its slice of the positions and an
+    all-reduce over that axis, as :func:`_sdpa` takes them."""
     if not isinstance(q, DTensor):
         return core(q, k, v)
     mesh = q.device_mesh
@@ -228,8 +234,8 @@ def _on_shards(core, q, k, v):
     # The local gradients go back contiguous: DTensor describes a shard by
     # the global tensor's strides, and a permuted local gradient (an
     # einsum's) would not view as the next operation asks.
-    ql = _ContiguousGrad.apply(q.to_local())
-    kl, vl = (_ContiguousGrad.apply(t.to_local(grad_placements=kv_grad))
+    ql = ContiguousGrad.apply(q.to_local())
+    kl, vl = (ContiguousGrad.apply(t.to_local(grad_placements=kv_grad))
               for t in (k, v))
     if slice_kv:
         h, kv = q.shape[2], k.shape[2]
@@ -240,6 +246,14 @@ def _on_shards(core, q, k, v):
             raise ValueError(f"{hl} local heads do not group over kv heads "
                              f"{lo}..{hi - 1}")
         kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    seq = [i for i, pl in enumerate(k.placements) if pl == Shard(1)]
+    if seq:
+        (si,) = seq
+        if q.placements[si] != Replicate():
+            raise ValueError(f"keys split over {names[si]}, queries "
+                             f"{q.placements[si]} there")
+        kw["seq_slice"] = (mesh.get_coordinate()[si] * kl.shape[1], kl.shape[1])
+        kw["seq_reduce"] = lambda t, op: funcol.all_reduce(t, op, (mesh, si))
     out = core(ql, kl, vl, **kw).contiguous()
     out = DTensor.from_local(out, mesh, q.placements, run_check=False)
     if tuple(out.placements) != tuple(q_pl):
@@ -281,8 +295,11 @@ def forward(p, cfg, x, positions, *, window=None, theta=None, mask=None,
             skip_uncausal=skip_uncausal), q, k, v)
     out = constrain(out, ("batch", None, "model", None))
     b = x.shape[0]
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ gather_fsdp(p["w_o_out"])
-    return out, (k, v)
+    # Heads that do not split over ``model`` (granite's 24 over 16) come
+    # out replicated; split their merged width there, so the product's
+    # gradient comes back whole to the heads' reshape.
+    out = constrain(out.reshape(b, s, cfg.n_heads * cfg.hd), ("batch", None, "model"))
+    return out @ gather_fsdp(p["w_o_out"]), (k, v)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device, lead: tuple = ()):
@@ -294,15 +311,24 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device, lead: tuple = ()):
 def _write_slot(c, t: int, new) -> None:
     """``c[:, t] = new`` (``c [B,T,KV,D]``, ``new [B,KV,D]``); a DTensor
     cache is written on each device's shard, ``new`` first placed as the
-    cache's slot (its sequence axis must not be split)."""
+    cache's slot.  A cache split over its sequence axis is written only on
+    the device that holds position ``t``, at its local index."""
     if not isinstance(c, DTensor):
         c[:, t] = new
         return
-    if Shard(1) in c.placements:
-        raise NotImplementedError("a decode cache split over its sequence axis")
-    want = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+    mesh = c.device_mesh
+    want = [Replicate() if p == Shard(1) else
+            Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
             for p in c.placements]
-    c.to_local()[:, t] = new.redistribute(c.device_mesh, want).to_local()
+    # A redistribution may be a collective: every device runs it, the
+    # owner alone writes.
+    val = new.redistribute(mesh, want).to_local()
+    loc = c.to_local()
+    for i, p in enumerate(c.placements):
+        if p == Shard(1):
+            t -= mesh.get_coordinate()[i] * loc.shape[1]
+    if 0 <= t < loc.shape[1]:
+        loc[:, t] = val
 
 
 def decode_step(p, cfg, x, cache, pos: int, *, window=None, theta=None,

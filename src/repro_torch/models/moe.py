@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..distributed.sharding import ContiguousGrad, gather_fsdp, join, whole_rows
 from . import mlp as mlp_mod
 from .layers import activation, dense_init, normal
 
@@ -54,27 +56,13 @@ def capacity(cfg, g_sz: int) -> int:
                cfg.top_k)
 
 
-def route(p, cfg, xt):
-    """Router of one call.  xt: [G, S, D].
-
-    Returns ``probs`` [G, S, Epad] (float32), the renormalised top-k
-    weights ``topv`` and experts ``topi`` [G, S, K], each choice's slot
-    ``pos`` in its expert's queue (int64, not clamped) and ``keep =
-    pos < cap``.
-
-    Ties: ``torch.topk`` does not promise the JAX package's low-index-first
-    order among equal values.  A padded expert has probability 0 against a
-    real expert's exp(logit − max) > 0, which underflows only for a logit
-    ~100 nats below the maximum, so padded experts never tie into the top
-    k; ties between real experts need equal float32 probabilities.
-    """
-    g, g_sz, _ = xt.shape
-    e_pad = p["router_in"].shape[-1]
-    logits = xt.float() @ p["router_in"]                         # [G, S, Epad]
-    if e_pad > cfg.n_experts:
-        pad = torch.arange(e_pad, device=xt.device) >= cfg.n_experts
-        logits = torch.where(pad[None, None], -1e30, logits)
-    probs = torch.softmax(logits, dim=-1)
+def _choose(probs, cfg, g_sz: int):
+    """Top-k of the router's probabilities ``[G, S, Epad]``: the
+    renormalised weights ``topv`` and experts ``topi`` [G, S, K], each
+    choice's slot ``pos`` in its expert's queue (int64, not clamped) and
+    ``keep = pos < cap``."""
+    g = probs.shape[0]
+    e_pad = probs.shape[-1]
     topv, topi = torch.topk(probs, cfg.top_k, dim=-1)             # [G, S, K]
     topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)            # renormalize
     # Slot of each (token, k) in its expert's queue: a running count over
@@ -84,46 +72,84 @@ def route(p, cfg, xt):
     onehot = _one_hot(flat, e_pad)                               # [G, S*K, E]
     before = torch.cumsum(onehot, dim=1) - onehot
     pos = before.gather(2, flat[..., None])[..., 0].reshape(topi.shape)
-    return probs, topv, topi, pos, pos < capacity(cfg, g_sz)
+    return topv, topi, pos, pos < capacity(cfg, g_sz)
+
+
+def route(p, cfg, xt):
+    """Router of one call.  xt: [G, S, D].
+
+    Returns ``probs`` [G, S, Epad] (float32) and :func:`_choose`'s
+    ``topv, topi, pos, keep``.
+
+    Ties: ``torch.topk`` does not promise the JAX package's low-index-first
+    order among equal values.  A padded expert has probability 0 against a
+    real expert's exp(logit − max) > 0, which underflows only for a logit
+    ~100 nats below the maximum, so padded experts never tie into the top
+    k; ties between real experts need equal float32 probabilities.
+    """
+    e_pad = p["router_in"].shape[-1]
+    logits = xt.float() @ p["router_in"]                         # [G, S, Epad]
+    if e_pad > cfg.n_experts:
+        pad = torch.arange(e_pad, device=xt.device) >= cfg.n_experts
+        logits = torch.where(pad[None, None], -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+    return (probs, *_choose(probs, cfg, xt.shape[1]))
+
+
+def _experts(cfg, xt, topv, topi, pos, keep, wg, wu, wd, first: int = 0):
+    """The routed experts' output ``[G, S, D]`` of tokens ``xt [G, S, D]``
+    through experts ``first .. first + E`` (``wg``, ``wu`` [E, D, F],
+    ``wd`` [E, F, D]); choices of other experts count 0.
+
+    Dispatch: each kept (token, k) into slot e·cap + pos of its group's
+    [E·C, D] buffer, where it is the only token; dropped choices, and
+    choices of other experts, go to a spare last slot that is thrown away.
+    No host sync: the path stays asynchronous on CUDA."""
+    g, g_sz, d = xt.shape
+    k = cfg.top_k
+    n_exp = wg.shape[0]
+    cap = capacity(cfg, g_sz)
+    local = topi - first
+    mine = keep & (local >= 0) & (local < n_exp)
+    spare = n_exp * cap
+    dest = torch.where(mine, local * cap + pos, spare)           # [G, S, K]
+    gi = torch.arange(g, device=xt.device).view(g, 1, 1).expand_as(dest)
+    xe = torch.zeros((g, spare + 1, d), dtype=xt.dtype, device=xt.device)
+    xe[gi, dest] = xt[:, :, None, :].expand(g, g_sz, k, d)
+    xe = xe[:, :spare].reshape(g, n_exp, cap, d).transpose(0, 1)
+    xe = xe.reshape(n_exp, g * cap, d)
+
+    act = activation(cfg.act)
+    h = act(torch.bmm(xe, wg))
+    h = h * torch.bmm(xe, wu)
+    ye = torch.bmm(h, wd)                                        # [E, G*C, D]
+    ye = ye.reshape(n_exp, g, cap, d).transpose(0, 1).reshape(g, n_exp * cap, d)
+
+    # Combine: gather each choice's expert output, weight it (0 if dropped
+    # or another device's).
+    slot = (torch.clamp(local, 0, n_exp - 1) * cap
+            + torch.clamp(pos, max=cap - 1))                     # [G, S, K]
+    w = (topv * mine).to(xt.dtype)
+    picked = ye.gather(1, slot.reshape(g, g_sz * k, 1).expand(-1, -1, d))
+    return (picked.reshape(g, g_sz, k, d) * w[..., None]).sum(2)
 
 
 def forward(p, cfg, x, *, model_axis: int = 16):
     """x: [B, S, D] -> ([B, S, D], aux).  ``aux`` is the Switch
-    load-balance loss."""
+    load-balance loss.  A DTensor ``x`` runs expert-parallel
+    (:func:`_forward_sharded`)."""
+    if isinstance(x, DTensor):
+        return _forward_sharded(p, cfg, x)
     b, s, d = x.shape
     e_pad = p["router_in"].shape[-1]
     g_sz = min(cfg.moe_group_size, s)
     if (b * s) % g_sz:
         raise ValueError(f"{b}x{s} tokens do not split into groups of {g_sz}")
     g = (b * s) // g_sz
-    k = cfg.top_k
     xt = x.reshape(g, g_sz, d)
     probs, topv, topi, pos, keep = route(p, cfg, xt)
-    cap = capacity(cfg, g_sz)
-
-    # Dispatch: each kept (token, k) into slot e·cap + pos of its group's
-    # [E·C, D] buffer, where it is the only token; dropped choices go to a
-    # spare last slot that is thrown away.  No host sync: the path stays
-    # asynchronous on CUDA.
-    spare = e_pad * cap
-    dest = torch.where(keep, topi * cap + pos, spare)            # [G, S, K]
-    gi = torch.arange(g, device=x.device).view(g, 1, 1).expand_as(dest)
-    xe = torch.zeros((g, spare + 1, d), dtype=x.dtype, device=x.device)
-    xe[gi, dest] = xt[:, :, None, :].expand(g, g_sz, k, d)
-    xe = xe[:, :spare].reshape(g, e_pad, cap, d).transpose(0, 1)
-    xe = xe.reshape(e_pad, g * cap, d)
-
-    act = activation(cfg.act)
-    h = act(torch.bmm(xe, p["w_experts_gate"]))
-    h = h * torch.bmm(xe, p["w_experts_up"])
-    ye = torch.bmm(h, p["w_experts_down"])                       # [E, G*C, D]
-    ye = ye.reshape(e_pad, g, cap, d).transpose(0, 1).reshape(g, e_pad * cap, d)
-
-    # Combine: gather each choice's expert output, weight it (0 if dropped).
-    slot = topi * cap + torch.clamp(pos, max=cap - 1)            # [G, S, K]
-    w = (topv * keep).to(x.dtype)
-    picked = ye.gather(1, slot.reshape(g, g_sz * k, 1).expand(-1, -1, d))
-    y = (picked.reshape(g, g_sz, k, d) * w[..., None]).sum(2)
+    y = _experts(cfg, xt, topv, topi, pos, keep, p["w_experts_gate"],
+                 p["w_experts_up"], p["w_experts_down"])
     out = y.reshape(b, s, d)
 
     if cfg.n_shared_experts:
@@ -133,4 +159,68 @@ def forward(p, cfg, x, *, model_axis: int = 16):
     me = probs.mean(dim=(0, 1))
     fe = _one_hot(topi, e_pad).sum(2).float().mean(dim=(0, 1))
     aux = cfg.n_experts * torch.sum(me * fe)
+    return out, aux
+
+
+def _forward_sharded(p, cfg, x):
+    """:func:`forward` on DTensors, expert-parallel.
+
+    The experts are split over ``model`` (``w_experts_*``), the tokens over
+    the batch axes and replicated over ``model``.  The router runs on
+    DTensors (its weight replicated, [d, Epad] is small), so every device
+    has every probability of its rows.  Then each device, on its local
+    tensors, routes its groups, keeps the choices that land in its own
+    experts, runs those experts' FFNs on FSDP-gathered weights and returns
+    its part of the output: partial over ``model``, summed where it joins
+    the residual stream.  The aux loss is the Switch loss over all experts,
+    on DTensors (each device's expert counts of its rows).
+
+    The counted products are the capacity slots of the device's experts
+    (filled or not) through their FFNs.  The JAX package dispatches and
+    combines with dense one-hot einsums over every (token, expert, slot),
+    so XLA's count is higher; the port's is not padded to match."""
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    x = whole_rows(x)
+    rows = x.placements
+    s, d = x.shape[1:]
+    e_pad = p["router_in"].shape[-1]
+    g_sz = min(cfg.moe_group_size, s)
+
+    router = p["router_in"].redistribute(mesh, [Replicate()] * mesh.ndim)
+    logits = x.float() @ router                                  # [B, S, Epad]
+    if e_pad > cfg.n_experts:
+        pad = join(torch.arange(e_pad, device=x.device) >= cfg.n_experts, logits)
+        logits = torch.where(pad, -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+
+    ws = [gather_fsdp(p[k]) for k in ("w_experts_gate", "w_experts_up",
+                                      "w_experts_down")]
+    ep = mi is not None and ws[0].placements[mi] == Shard(0)
+    # Each device's output, and so the gradient of its inputs, is its
+    # experts' part: partial over ``model``.
+    part = [Partial() if i == mi and ep else pl for i, pl in enumerate(rows)]
+    wl = [ContiguousGrad.apply(w.to_local(grad_placements=[
+        pl if i == mi else Partial() if rows[i] == Shard(0) else Replicate()
+        for i, pl in enumerate(w.placements)])) for w in ws]
+    xl = ContiguousGrad.apply(x.to_local(grad_placements=part))
+    prl = ContiguousGrad.apply(probs.to_local(grad_placements=part))
+    bl = xl.shape[0]
+    if (bl * s) % g_sz:
+        raise ValueError(f"a device's {bl}x{s} tokens do not split into "
+                         f"groups of {g_sz}")
+    g = (bl * s) // g_sz
+    first = mesh.get_coordinate()[mi] * wl[0].shape[0] if ep else 0
+    topv, topi, pos, keep = _choose(prl.reshape(g, g_sz, e_pad), cfg, g_sz)
+    y = _experts(cfg, xl.reshape(g, g_sz, d), topv, topi, pos, keep, *wl,
+                 first=first)
+    out = DTensor.from_local(y.reshape(bl, s, d), mesh, part, run_check=False)
+
+    if cfg.n_shared_experts:
+        out = out + mlp_mod.forward(p["shared"], x, cfg.act)
+
+    counts = _one_hot(topi, e_pad).sum(2).float().reshape(bl, s, e_pad)
+    fe = DTensor.from_local(counts, mesh, rows, run_check=False).mean(dim=(0, 1))
+    aux = cfg.n_experts * torch.sum(probs.mean(dim=(0, 1)) * fe)
     return out, aux

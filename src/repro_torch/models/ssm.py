@@ -24,6 +24,14 @@ finite:
 
 ``A_log``, ``D`` and ``dt_bias`` are float32 leaves whatever the model's
 dtype; the scan computes in float32 (float64 in a float64 model).
+
+On DTensors the in- and out-projections run as DTensor products; the
+mixer between them runs on each device's rows
+(``distributed.sharding.on_rows``), the projection gathered over
+``model`` first, since ``w_in``'s output splits into z, x, B, C and dt at
+points that are not shard boundaries.  So every device of ``model``
+computes the whole mixer of its rows; the caches keep the rules'
+placements, each device writing its shard.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import assign, gather_fsdp, on_rows, whole_rows
 from .layers import compute_dtype, dense_init, normal, rmsnorm, zeros
 
 
@@ -63,10 +72,9 @@ def init(gen, cfg, dtype, device, lead: tuple = ()):
     }
 
 
-def _split_proj(p, cfg, x):
+def _split_proj(cfg, zxbcdt):
     di = d_inner(cfg)
     n = cfg.ssm_state
-    zxbcdt = x @ p["w_in"]
     return torch.split(zxbcdt, [di, di, n, n, n_ssm_heads(cfg)], dim=-1)
 
 
@@ -86,23 +94,42 @@ def _tril_cumsum(x, dim: int):
     return torch.movedim(torch.matmul(tri, torch.movedim(x, dim, -2)), -2, dim)
 
 
+_MIXER_WEIGHTS = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale")
+
+
 def forward(p, cfg, x, chunk: int = 128):
-    """x: [B, L, D] -> [B, L, D]."""
-    bsz, L, _ = x.shape
-    di, n, h, pdim = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_headdim
+    """x: [B, L, D] -> [B, L, D].  The two projections run on DTensors as
+    they come (a sequence split over ``model`` gathered first: the scan
+    runs along it); the mixer between them (the split of ``w_in``'s
+    output, the causal conv, the scan, the gated norm) runs on each
+    device's rows (:func:`sharding.on_rows`), the projection gathered over
+    ``model`` first: its split points are not shard boundaries."""
+    L = x.shape[1]
     chunk = min(chunk, L)
     if L % chunk:
         raise ValueError(f"sequence {L} does not split into chunks of {chunk}")
+    zxbcdt = whole_rows(x) @ gather_fsdp(p["w_in"])
+    y = on_rows(lambda zx, *w: _mixer(cfg, chunk, zx, *w), (zxbcdt,),
+                tuple(p[k] for k in _MIXER_WEIGHTS))
+    return y @ gather_fsdp(p["w_out"])
+
+
+def _mixer(cfg, chunk, zxbcdt, conv_w, conv_b, a_log, d_skip, dt_bias,
+           norm_scale):
+    """One device's rows: the projection ``[B, L, 2di + 2n + H]`` -> the
+    gated, normed SSD output ``[B, L, di]`` in the projection's dtype."""
+    bsz, L, _ = zxbcdt.shape
+    di, n, h, pdim = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_headdim
     nc = L // chunk
 
-    z, xs, bmat, cmat, dt = _split_proj(p, cfg, x)
-    xbc = _causal_conv(torch.cat([xs, bmat, cmat], -1), p["conv_w"], p["conv_b"])
+    z, xs, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+    xbc = _causal_conv(torch.cat([xs, bmat, cmat], -1), conv_w, conv_b)
     xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
 
-    f32 = compute_dtype(x.dtype)
+    f32 = compute_dtype(zxbcdt.dtype)
     xh = xs.reshape(bsz, L, h, pdim).to(f32)
-    dt = F.softplus(dt.to(f32) + p["dt_bias"])                          # [B,L,H]
-    a = -torch.exp(p["A_log"])                                          # [H]
+    dt = F.softplus(dt.to(f32) + dt_bias)                               # [B,L,H]
+    a = -torch.exp(a_log)                                               # [H]
     loga = dt * a[None, None]                                           # ≤ 0
 
     # chunked views
@@ -113,9 +140,9 @@ def forward(p, cfg, x, chunk: int = 128):
     cum = _tril_cumsum(loga.reshape(bsz, nc, chunk, h), 2)             # [B,nc,cl,H]
     total = cum[:, :, -1]                                               # [B,nc,H]
 
-    idx = torch.arange(chunk, device=x.device)
+    idx = torch.arange(chunk, device=zxbcdt.device)
     causal = (idx[:, None] >= idx[None, :])[None, :, :, None]           # [1,i,j,1]
-    state = torch.zeros((bsz, h, n, pdim), dtype=f32, device=x.device)
+    state = torch.zeros((bsz, h, n, pdim), dtype=f32, device=zxbcdt.device)
     ys = []
     for c in range(nc):
         xck, dtk, cumk, totk = xc[:, c], dtc[:, c], cum[:, c], total[:, c]
@@ -133,10 +160,9 @@ def forward(p, cfg, x, chunk: int = 128):
         state = torch.exp(totk)[:, :, None, None] * state + s_new
         ys.append(y_inter + y_intra)
     y = torch.stack(ys, 1).reshape(bsz, L, h, pdim)
-    y = y + p["D"][None, None, :, None] * xh
-    y = y.reshape(bsz, L, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    return y @ p["w_out"]
+    y = y + d_skip[None, None, :, None] * xh
+    y = y.reshape(bsz, L, di).to(zxbcdt.dtype)
+    return rmsnorm(y * F.silu(z), norm_scale, cfg.norm_eps)
 
 
 def init_cache(cfg, batch: int, dtype, device, lead: tuple = ()):
@@ -149,26 +175,37 @@ def init_cache(cfg, batch: int, dtype, device, lead: tuple = ()):
 
 def decode_step(p, cfg, x, cache):
     """x: [B,1,D] -> ([B,1,D], cache): the O(1)-state step, the cache
-    written in place."""
-    bsz = x.shape[0]
+    written in place (on DTensors, on each device's rows as
+    :func:`forward`'s mixer, each cache shard written from them)."""
+    y, state, conv = on_rows(
+        lambda zx, st, cv, *w: _mixer_step(cfg, zx, st, cv, *w),
+        (x @ gather_fsdp(p["w_in"]), cache["state"], cache["conv"]),
+        tuple(p[k] for k in _MIXER_WEIGHTS))
+    assign(cache["state"], state)
+    assign(cache["conv"], conv)
+    return y @ gather_fsdp(p["w_out"]), cache
+
+
+def _mixer_step(cfg, zxbcdt, state, conv, conv_w, conv_b, a_log, d_skip,
+                dt_bias, norm_scale):
+    """One token of one device's rows: ``(y [B, 1, di], state, conv)``."""
+    bsz = zxbcdt.shape[0]
     di, n, h, pdim = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_headdim
-    f32 = compute_dtype(x.dtype)
-    z, xs, bmat, cmat, dt = _split_proj(p, cfg, x)
+    f32 = compute_dtype(zxbcdt.dtype)
+    z, xs, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xs, bmat, cmat], -1)                               # [B,1,C]
-    hist = torch.cat([cache["conv"], xbc], dim=1)                       # [B,K,C]
-    conv_out = F.silu((hist * p["conv_w"][None]).sum(1) + p["conv_b"])
+    hist = torch.cat([conv, xbc], dim=1)                                # [B,K,C]
+    conv_out = F.silu((hist * conv_w[None]).sum(1) + conv_b)
     xs, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
 
     xh = xs.reshape(bsz, h, pdim).to(f32)
-    dt1 = F.softplus(dt[:, 0].to(f32) + p["dt_bias"])                   # [B,H]
-    a = -torch.exp(p["A_log"])
+    dt1 = F.softplus(dt[:, 0].to(f32) + dt_bias)                        # [B,H]
+    a = -torch.exp(a_log)
     decay = torch.exp(dt1 * a[None])                                    # [B,H]
-    s = cache["state"] * decay[:, :, None, None]
+    s = state * decay[:, :, None, None]
     s = s + torch.einsum("bn,bh,bhp->bhnp", bmat.to(f32), dt1, xh)
     y = torch.einsum("bn,bhnp->bhp", cmat.to(f32), s)
-    y = y + p["D"][None, :, None] * xh
-    y = y.reshape(bsz, 1, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    cache["state"].copy_(s)
-    cache["conv"].copy_(hist[:, 1:])
-    return y @ p["w_out"], cache
+    y = y + d_skip[None, :, None] * xh
+    y = y.reshape(bsz, 1, di).to(zxbcdt.dtype)
+    y = rmsnorm(y * F.silu(z), norm_scale, cfg.norm_eps)
+    return y, s, hist[:, 1:]

@@ -157,24 +157,28 @@ def _attn_moe_fwd(p, cfg, x, positions, model_axis):
     x = x + _sp(cfg, h)
     y, aux = moe.forward(p["moe"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps),
                          model_axis=model_axis)
-    return x + y, aux
+    return x + _sp(cfg, y), aux
 
 
 def _mamba_fwd(p, cfg, x):
     x = _sp(cfg, x)
-    return x + ssm.forward(p["mamba"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps))
+    return x + _sp(cfg, ssm.forward(p["mamba"], cfg,
+                                    rmsnorm(x, p["ln"], cfg.norm_eps)))
 
 
 def _mamba_decode(p, cfg, x, c):
     o, _ = ssm.decode_step(p["mamba"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps), c)
-    return x + o
+    return x + _sp(cfg, o)
 
 
 def _xlstm_unit_fwd(unit_p, cfg, x):
     for p in unstack(unit_p["mlstm"]):
-        x = x + xlstm.m_forward(p["cell"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps))
+        x = _sp(cfg, x)
+        x = x + _sp(cfg, xlstm.m_forward(p["cell"], cfg,
+                                         rmsnorm(x, p["ln"], cfg.norm_eps)))
     p = unit_p["slstm"]
-    return x + xlstm.s_forward(p["cell"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps))
+    return x + _sp(cfg, xlstm.s_forward(p["cell"], cfg,
+                                        rmsnorm(x, p["ln"], cfg.norm_eps)))
 
 
 def _attn_decode(p, cfg, x, c, pos, window=None, theta=None, ring=False):
@@ -660,7 +664,7 @@ class Model(nn.Module):
                 y, _ = moe.forward(p["moe"], cfg,
                                    rmsnorm(x, p["ln2"], cfg.norm_eps),
                                    model_axis=self.model_axis)
-                x = x + y
+                x = x + _sp(cfg, y)
         elif cfg.family == "hybrid":
             shared = params["shared_attn"]
             for unit_p, unit_c, attn_c in zip(unstack(params["mamba_units"]),
@@ -679,11 +683,11 @@ class Model(nn.Module):
                 for p, c in zip(unstack(unit_p["mlstm"]), unstack(unit_c["mlstm"])):
                     o, _ = xlstm.m_decode_step(
                         p["cell"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps), c)
-                    x = x + o
+                    x = x + _sp(cfg, o)
                 p, c = unit_p["slstm"], unit_c["slstm"]
                 o, _ = xlstm.s_decode_step(p["cell"], cfg,
                                            rmsnorm(x, p["ln"], cfg.norm_eps), c)
-                x = x + o
+                x = x + _sp(cfg, o)
         else:
             raise ValueError(cfg.family)
 

@@ -11,13 +11,18 @@ sLSTM: a scalar-memory cell with recurrent, block-diagonal (per head) gate
 connections; inherently sequential, so a Python loop over time, followed
 by a gated FFN with projection factor 4/3.
 
-The cells compute in float32 (float64 in a float64 model).  The
-stabilisers start at a float32 ``-1e30``, as the JAX package's do:
-``exp(-m)`` and ``exp(f + m - m_new)`` underflow to 0 there, where
-``-inf`` would give ``-inf - -inf = NaN``.  Cumulative sums along a chunk
-are a product with a lower-triangular matrix of ones (``torch.cumsum`` has
-no deterministic CUDA kernel for floating types).  Decode steps write
-their caches in place.
+The cells compute in float32 (float64 in a float64 model), and their
+decode caches hold the same type.  The stabilisers start at a float32
+``-1e30``, as the JAX package's do: ``exp(-m)`` and ``exp(f + m - m_new)``
+underflow to 0 there, where ``-inf`` would give ``-inf - -inf = NaN``.
+Cumulative sums along a chunk are a product with a lower-triangular matrix
+of ones (``torch.cumsum`` has no deterministic CUDA kernel for floating
+types).  Decode steps write their caches in place.
+
+On DTensors the projections run as they come and the cells on each
+device's rows (``distributed.sharding.on_rows``): whole heads on every
+device of ``model`` (xlstm-350m's 4 heads do not split 16 ways), and the
+sLSTM's step a token on local tensors, not through DTensor's dispatch.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import assign, gather_fsdp, on_rows, whole_rows
 from .layers import compute_dtype, dense_init, normal, rmsnorm, zeros
 from .ssm import _tril_cumsum
 
@@ -54,38 +60,52 @@ def m_init(gen, cfg, dtype, device, lead: tuple = ()):
     }
 
 
-def _m_gates(p, cfg, xu):
+def _m_gates(cfg, gates):
+    """Input and forget log-gates [..., H] from the pre-activations
+    [..., 2H], in the cell's float type."""
     h = cfg.n_heads
-    gates = (xu @ p["w_if"]).to(compute_dtype(xu.dtype))
+    gates = gates.to(compute_dtype(gates.dtype))
     i_log = gates[..., :h]                                     # pre-activation
     f_log = F.logsigmoid(gates[..., h:])                       # log f ∈ (−∞, 0)
     return i_log, f_log
 
 
-def _m_qkv(p, xu, shape):
-    hd = shape[-1]
-    acc = compute_dtype(xu.dtype)
-    q = (xu @ p["w_q_in"]).reshape(shape).to(acc) / np.sqrt(hd)
-    k = (xu @ p["w_k_in"]).reshape(shape).to(acc)
-    v = (xu @ p["w_v_in"]).reshape(shape).to(acc)
-    return q, k, v
+def _m_heads(t, shape):
+    """A projection ``[..., H·hd]`` as float32 (float64) heads ``shape``."""
+    return t.reshape(shape).to(compute_dtype(t.dtype))
 
 
 def m_forward(p, cfg, x, chunk: int = 128):
-    """x: [B, L, D] -> [B, L, D]; chunked parallel mLSTM."""
-    bsz, L, d = x.shape
-    h = cfg.n_heads
-    up = x @ p["w_up_in"]
+    """x: [B, L, D] -> [B, L, D]; chunked parallel mLSTM.  The projections
+    run on DTensors as they come; the cell runs on each device's rows
+    (:func:`sharding.on_rows`), whole heads on every device of ``model``:
+    xlstm-350m's 4 heads do not split 16 ways."""
+    L = x.shape[1]
+    up = whole_rows(x) @ gather_fsdp(p["w_up_in"])
     xu, z = torch.chunk(up, 2, dim=-1)
-    du = xu.shape[-1]
-    hd = du // h
     chunk = min(chunk, L)
     if L % chunk:
         raise ValueError(f"sequence {L} does not split into chunks of {chunk}")
-    nc = L // chunk
+    y = on_rows(lambda *a: _m_cell(cfg, chunk, *a),
+                tuple(xu @ gather_fsdp(p[k])
+                      for k in ("w_q_in", "w_k_in", "w_v_in", "w_if")))
+    y = y.to(x.dtype)
+    y = rmsnorm(y, p["norm_scale"], cfg.norm_eps) * F.silu(z)
+    return y @ gather_fsdp(p["w_down_out"])
 
-    q, k, v = _m_qkv(p, xu, (bsz, L, h, hd))
-    i_log, f_log = _m_gates(p, cfg, xu)                        # [B,L,H]
+
+def _m_cell(cfg, chunk, q, k, v, gates):
+    """The chunked mLSTM of one device's rows: projections ``q, k, v``
+    [B, L, du] and gate pre-activations [B, L, 2H] -> [B, L, du] in the
+    cell's float type."""
+    bsz, L, du = q.shape
+    h = cfg.n_heads
+    hd = du // h
+    nc = L // chunk
+    q = _m_heads(q, (bsz, L, h, hd)) / np.sqrt(hd)
+    k = _m_heads(k, (bsz, L, h, hd))
+    v = _m_heads(v, (bsz, L, h, hd))
+    i_log, f_log = _m_gates(cfg, gates)                        # [B,L,H]
 
     qc = q.reshape(bsz, nc, chunk, h, hd)
     kc = k.reshape(bsz, nc, chunk, h, hd)
@@ -94,12 +114,12 @@ def m_forward(p, cfg, x, chunk: int = 128):
     fcum = _tril_cumsum(f_log.reshape(bsz, nc, chunk, h), 2)   # [B,nc,cl,H]
     ftot = fcum[:, :, -1]
 
-    idx = torch.arange(chunk, device=x.device)
+    idx = torch.arange(chunk, device=q.device)
     causal = (idx[:, None] >= idx[None, :])[None, :, :, None]
     acc = q.dtype
-    S = torch.zeros((bsz, h, hd, hd), dtype=acc, device=x.device)
-    nvec = torch.zeros((bsz, h, hd), dtype=acc, device=x.device)
-    m = _full((bsz, h), M0, x.device, acc)
+    S = torch.zeros((bsz, h, hd, hd), dtype=acc, device=q.device)
+    nvec = torch.zeros((bsz, h, hd), dtype=acc, device=q.device)
+    m = _full((bsz, h), M0, q.device, acc)
     ys = []
     for c in range(nc):
         qk, kk, vk, ik, fck, ftk = (qc[:, c], kc[:, c], vc[:, c], ic[:, c],
@@ -128,44 +148,56 @@ def m_forward(p, cfg, x, chunk: int = 128):
                                                     kk, vk, wk)
         nvec = wS[:, :, None] * nvec + torch.einsum("bjhk,bjh->bhk", kk, wk)
         m = m_new
-    y = torch.stack(ys, 1).reshape(bsz, L, du).to(x.dtype)
-    y = rmsnorm(y, p["norm_scale"], cfg.norm_eps) * F.silu(z)
-    return y @ p["w_down_out"]
+    return torch.stack(ys, 1).reshape(bsz, L, du)
 
 
 def m_init_cache(cfg, batch: int, device, lead: tuple = ()):
     h = cfg.n_heads
     hd = int(2 * cfg.d_model) // h
-    return {"S": zeros((batch, h, hd, hd), torch.float32, device, lead),
-            "n": zeros((batch, h, hd), torch.float32, device, lead),
-            "m": _full((*lead, batch, h), M0, device)}
+    acc = compute_dtype(cfg.params_dtype)
+    return {"S": zeros((batch, h, hd, hd), acc, device, lead),
+            "n": zeros((batch, h, hd), acc, device, lead),
+            "m": _full((*lead, batch, h), M0, device, acc)}
 
 
 def m_decode_step(p, cfg, x, cache):
-    bsz = x.shape[0]
-    h = cfg.n_heads
-    up = x @ p["w_up_in"]
+    up = x @ gather_fsdp(p["w_up_in"])
     xu, z = torch.chunk(up, 2, dim=-1)
     du = xu.shape[-1]
+    xu0 = xu[:, 0]
+    y, S, nvec, m_new = on_rows(
+        lambda *a: _m_step(cfg, *a),
+        (*(xu0 @ gather_fsdp(p[k]) for k in ("w_q_in", "w_k_in", "w_v_in")),
+         xu[:, 0:1] @ gather_fsdp(p["w_if"]), cache["S"], cache["n"], cache["m"]))
+    y = y.reshape(x.shape[0], 1, du).to(x.dtype)
+    y = rmsnorm(y, p["norm_scale"], cfg.norm_eps) * F.silu(z)
+    assign(cache["S"], S)
+    assign(cache["n"], nvec)
+    assign(cache["m"], m_new)
+    return y @ gather_fsdp(p["w_down_out"]), cache
+
+
+def _m_step(cfg, q, k, v, gates, S, nvec, m):
+    """One mLSTM step of one device's rows: projections [B, du], gate
+    pre-activations [B, 1, 2H] and the carried ``S, n, m`` -> ``(y [B, H,
+    hd], S, n, m)``."""
+    bsz, du = q.shape
+    h = cfg.n_heads
     hd = du // h
-    q, k, v = _m_qkv(p, xu[:, 0], (bsz, h, hd))
-    i_log, f_log = _m_gates(p, cfg, xu[:, 0:1])
+    q = _m_heads(q, (bsz, h, hd)) / np.sqrt(hd)
+    k = _m_heads(k, (bsz, h, hd))
+    v = _m_heads(v, (bsz, h, hd))
+    i_log, f_log = _m_gates(cfg, gates)
     i_log, f_log = i_log[:, 0], f_log[:, 0]                    # [B,H]
-    m_new = torch.maximum(f_log + cache["m"], i_log)
-    wS = torch.exp(f_log + cache["m"] - m_new)
+    m_new = torch.maximum(f_log + m, i_log)
+    wS = torch.exp(f_log + m - m_new)
     wi = torch.exp(i_log - m_new)
-    S = wS[:, :, None, None] * cache["S"] + torch.einsum("bhk,bhv,bh->bhkv",
-                                                         k, v, wi)
-    nvec = wS[:, :, None] * cache["n"] + k * wi[:, :, None]
+    S = wS[:, :, None, None] * S + torch.einsum("bhk,bhv,bh->bhkv", k, v, wi)
+    nvec = wS[:, :, None] * nvec + k * wi[:, :, None]
     num = torch.einsum("bhk,bhkv->bhv", q, S)
     den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q, nvec)),
                         torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(bsz, 1, du).to(x.dtype)
-    y = rmsnorm(y, p["norm_scale"], cfg.norm_eps) * F.silu(z)
-    cache["S"].copy_(S)
-    cache["n"].copy_(nvec)
-    cache["m"].copy_(m_new)
-    return y @ p["w_down_out"], cache
+    return num / den[..., None], S, nvec, m_new
 
 
 # ---------------------------------------------------------------------------
@@ -204,48 +236,74 @@ def _s_cell(wxt, r, c, n, m, hprev):
     return c, n, m_new, hh
 
 
-def _s_ffn(p, cfg, y):
-    y = rmsnorm(y, p["norm_scale"], cfg.norm_eps)
-    g = F.gelu(y @ p["w_ff_gate_in"], approximate="tanh")
-    return (g * (y @ p["w_ff_up_in"])) @ p["w_ff_down_out"]
+_FFN_WEIGHTS = ("norm_scale", "w_ff_gate_in", "w_ff_up_in", "w_ff_down_out")
+
+
+def _s_ffn(cfg, y, norm_scale, w_gate, w_up, w_down):
+    y = rmsnorm(y, norm_scale, cfg.norm_eps)
+    g = F.gelu(y @ w_gate, approximate="tanh")
+    return (g * (y @ w_up)) @ w_down
 
 
 def s_forward(p, cfg, x):
-    """Sequential sLSTM over time (exact recurrence), then the gated FFN."""
-    bsz, L, d = x.shape
+    """Sequential sLSTM over time (exact recurrence), then the gated FFN,
+    both on each device's rows (:func:`sharding.on_rows`): the recurrence
+    is one step a token, which on DTensors runs on local tensors, not
+    through DTensor's dispatch at every step, and the FFN's width (4/3 of
+    d_model) splits over no ``model`` axis, so its weights are replicated
+    there anyway."""
+    def run(wx, r, *w):
+        return _s_ffn(cfg, _s_scan(cfg, wx, r).to(wx.dtype), *w)
+
+    return on_rows(run, (whole_rows(x) @ gather_fsdp(p["w_gates_in"]),),
+                   (p["r_gates"], *(p[k] for k in _FFN_WEIGHTS)))
+
+
+def _s_scan(cfg, wx, r):
+    """The sLSTM recurrence of one device's rows: input pre-activations
+    ``wx`` [B, L, 4d] and recurrent weights ``r`` -> ``h`` [B, L, d] in the
+    cell's float type."""
+    bsz, L, d4 = wx.shape
     h = cfg.n_heads
-    hd = d // h
-    wx = (x @ p["w_gates_in"]).reshape(bsz, L, h, 4 * hd)
-    acc = compute_dtype(x.dtype)
-    r = p["r_gates"].to(acc)
-    c = n = hh = torch.zeros((bsz, h, hd), dtype=acc, device=x.device)
-    m = _full((bsz, h, hd), M0, x.device, acc)
+    hd = d4 // (4 * h)
+    wx = wx.reshape(bsz, L, h, 4 * hd)
+    acc = compute_dtype(wx.dtype)
+    r = r.to(acc)
+    c = n = hh = torch.zeros((bsz, h, hd), dtype=acc, device=wx.device)
+    m = _full((bsz, h, hd), M0, wx.device, acc)
     hs = []
     for t in range(L):
         c, n, m, hh = _s_cell(wx[:, t], r, c, n, m, hh)
         hs.append(hh)
-    y = torch.stack(hs, 1).reshape(bsz, L, d).to(x.dtype)
-    return _s_ffn(p, cfg, y)
+    return torch.stack(hs, 1).reshape(bsz, L, h * hd)
 
 
 def s_init_cache(cfg, batch: int, device, lead: tuple = ()):
     h = cfg.n_heads
     hd = cfg.d_model // h
     shape = (batch, h, hd)
-    return {"c": zeros(shape, torch.float32, device, lead),
-            "n": zeros(shape, torch.float32, device, lead),
-            "m": _full((*lead, *shape), M0, device),
-            "h": zeros(shape, torch.float32, device, lead)}
+    acc = compute_dtype(cfg.params_dtype)
+    return {"c": zeros(shape, acc, device, lead),
+            "n": zeros(shape, acc, device, lead),
+            "m": _full((*lead, *shape), M0, device, acc),
+            "h": zeros(shape, acc, device, lead)}
 
 
 def s_decode_step(p, cfg, x, cache):
-    bsz = x.shape[0]
     h = cfg.n_heads
     hd = cfg.d_model // h
-    wx = (x[:, 0] @ p["w_gates_in"]).reshape(bsz, h, 4 * hd)
-    r = p["r_gates"].to(compute_dtype(x.dtype))
-    c, n, m, hh = _s_cell(wx, r, cache["c"], cache["n"], cache["m"], cache["h"])
-    out = _s_ffn(p, cfg, hh.reshape(bsz, 1, cfg.d_model).to(x.dtype))
+
+    def step(wx, c, n, m, hh, r, *w):
+        bsz = wx.shape[0]
+        c, n, m, hh = _s_cell(wx.reshape(bsz, h, 4 * hd),
+                              r.to(compute_dtype(wx.dtype)), c, n, m, hh)
+        out = _s_ffn(cfg, hh.reshape(bsz, 1, cfg.d_model).to(wx.dtype), *w)
+        return out, c, n, m, hh
+
+    out, c, n, m, hh = on_rows(
+        step, (x[:, 0] @ gather_fsdp(p["w_gates_in"]), cache["c"], cache["n"],
+               cache["m"], cache["h"]),
+        (p["r_gates"], *(p[k] for k in _FFN_WEIGHTS)))
     for k, v in (("c", c), ("n", n), ("m", m), ("h", hh)):
-        cache[k].copy_(v)
+        assign(cache[k], v)
     return out, cache

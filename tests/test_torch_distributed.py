@@ -170,10 +170,10 @@ def test_four_rank_world(four_ranks):
 
         f = res["forward_bits"]
         assert f["same_bits"]
-        # embed; per layer q, k, v, the attention output, the MLP hidden,
-        # and the residual stream's three (the layer's input, the attention
-        # and MLP outputs before they join it)
-        assert f["calls"] == 1 + 2 * (5 + 3)
+        # embed; per layer q, k, v, the attention output and its merged
+        # heads, the MLP hidden, and the residual stream's three (the
+        # layer's input, the attention and MLP outputs before they join it)
+        assert f["calls"] == 1 + 2 * (6 + 3)
         assert f["specs"] == ["('batch', None, 'model')",
                               "('batch', None, 'model', None)",
                               "('batch', None, None)"]

@@ -10,12 +10,22 @@ model on DTensors against the plain model.
   cache; the port's step count is a host integer).  A small
   ``neurlz_enhance`` (4 blocks, side 24, 2 slices) counts one block a
   device, the grouped conv kernels as kernels, and one float32 all-reduce.
-* On a 2×2 gloo world of spawned CPU ranks (``tests/torch_dist_worker.py``)
-  the reduced qwen3-4b's loss and gradients on DTensor-placed parameters,
-  one train step at microbatch 2, and (with one kv head, whose decode cache
-  splits its head dim) two decode steps equal the plain single-process
-  ones within DTENSOR_TOL of each tensor's largest value: the model changes
-  the dry run needs change no numbers.
+  Then, in the same process, on a fake {data: 2, model: 16} world (a model
+  axis that splits none of the reduced presets' heads and pads their 8
+  experts to 16), the reduced granite-moe and deepseek-moe (train,
+  decode), xlstm-350m (train, decode) and zamba2-7b (train, prefill, and
+  decode at batch 1, its KV cache split over its sequence) lower ``ok``
+  with the JAX package's ``argument_bytes``, and the perf flags lower on
+  them (``inert_flags`` names those that mean nothing for a cell).
+* On a 4-rank gloo world of spawned CPU ranks (``tests/torch_dist_worker.py``)
+  the reduced qwen3-4b's loss and gradients on DTensor-placed parameters
+  over 2×2, one train step at microbatch 2, and (with one kv head, whose
+  decode cache splits its head dim) two decode steps equal the plain
+  single-process ones within DTENSOR_TOL of each tensor's largest value:
+  the model changes the dry run needs change no numbers.  So do the
+  reduced MoE, xLSTM and zamba2 models (``torch_dist_worker.FAMILY_CASES``:
+  experts padded 6 → 8 over ``model`` 4, heads that do not split, a
+  sequence-split decode cache at batch 1).
 """
 import json
 import os
@@ -30,6 +40,7 @@ import pytest
 import torch
 
 import torch_dist_worker as W
+import torch_dryrun_worker as DW
 from repro import configs as ref_configs
 from repro.configs.base import ShapeConfig as RefShape
 from repro.distributed import sharding as ref_sh
@@ -55,7 +66,7 @@ RECORD_KEYS = {"arch", "shape", "mesh", "n_chips", "kind", "remat", "seq_shard",
                "microbatch", "skip_uncausal", "moe_group", "sp_residual",
                "lower_s", "memory", "cost", "collectives", "roofline",
                "model_flops_per_device", "useful_compute_ratio",
-               "n_active_params", "n_params"}
+               "n_active_params", "n_params", "inert_flags"}
 
 
 @pytest.fixture(scope="module")
@@ -69,9 +80,9 @@ def cells(tmp_path_factory):
     return json.loads(out.read_text())["cells"]
 
 
-def _ref_local_bytes(tree, specs) -> int:
+def _ref_local_bytes(tree, specs, sizes=MESH) -> int:
     """Bytes one device holds of a ``jax.eval_shape`` tree under the
-    reference's specs on MESH."""
+    reference's specs on a mesh of ``sizes``."""
     leaves = jax.tree_util.tree_leaves(tree)
     spec_leaves = jax.tree_util.tree_leaves(
         specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
@@ -80,28 +91,33 @@ def _ref_local_bytes(tree, specs) -> int:
         n = int(np.prod(leaf.shape)) * np.dtype(leaf.dtype).itemsize
         for ax in spec:
             for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
-                n //= MESH[a]
+                n //= sizes[a]
         total += n
     return total
 
 
-def _ref_args(kind: str) -> int:
-    cfg = ref_configs.get_reduced("qwen3-4b")
-    model = ref_M.build_model(cfg, model_axis=MESH["model"])
-    mesh = SimpleNamespace(shape=MESH)
+def _ref_args(kind: str, arch: str = "qwen3-4b", seq: int = 64, batch: int = 8,
+              sizes=MESH) -> int:
+    """The local bytes of a cell's arguments under the JAX package's rules:
+    params, inputs, and AdamW's float32 moments (train) or the cache
+    (decode)."""
+    cfg = ref_configs.get_reduced(arch)
+    model = ref_M.build_model(cfg, model_axis=sizes["model"])
+    mesh = SimpleNamespace(shape=sizes)
     params = ref_M.abstract_params(model)
     pspecs = ref_sh.param_pspecs(params, mesh)
-    shape = RefShape("s", 64, 8, kind)
+    shape = RefShape("s", seq, batch, kind)
     specs = ref_M.input_specs(cfg, shape)
-    total = (_ref_local_bytes(params, pspecs)
-             + _ref_local_bytes(specs, ref_sh.input_pspecs(specs, mesh)))
+    total = (_ref_local_bytes(params, pspecs, sizes)
+             + _ref_local_bytes(specs, ref_sh.input_pspecs(specs, mesh), sizes))
     if kind == "train":     # the float32 moments, placed as the params
         f32 = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, np.float32),
                            params)
-        total += 2 * _ref_local_bytes(f32, pspecs)
-    else:
-        cache = ref_M.abstract_cache(model, 8, 64)
-        total += _ref_local_bytes(cache, ref_sh.cache_pspecs(cache, mesh, 8))
+        total += 2 * _ref_local_bytes(f32, pspecs, sizes)
+    elif kind == "decode":
+        cache = ref_M.abstract_cache(model, batch, seq)
+        total += _ref_local_bytes(cache, ref_sh.cache_pspecs(cache, mesh, batch),
+                                  sizes)
     return total
 
 
@@ -136,13 +152,34 @@ def test_fake_world_cells(cells):
     assert k["conv2d3x3_grouped"]["calls"] == 6
     assert k["conv2d3x3_grouped_bwd"]["calls"] == 6
 
+    # The MoE, xLSTM and zamba2 cells on a model axis that splits none of
+    # their heads and pads their experts.
+    for case, arch, kind, seq, batch, _ in DW.WIDE_CELLS:
+        rec = cells[case]
+        assert rec["status"] == "ok", (case, rec.get("error"))
+        assert rec["mesh"] == DW.WIDE_MESH and rec["n_chips"] == 32
+        assert rec["memory"]["argument_bytes"] == _ref_args(
+            kind, arch, seq, batch, DW.WIDE_MESH), case
+        coll = rec["collectives"]["per_kind_count"]
+        if "granite" in case or "deepseek" in case:
+            # the experts' partial outputs summed over model
+            assert coll.get("all-reduce", 0) > 0, (case, coll)
+    # --moe-group, --seq-shard, --sp-residual on the new families: ok;
+    # where a flag means nothing for the cell, the record says so.
+    rec = cells["granite_prefill_flags"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["moe_group"] == 16 and rec["inert_flags"] == []
+    rec = cells["xlstm_decode_flags"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["inert_flags"] == ["moe_group", "seq_shard", "skip_uncausal"]
+
 
 # ---- the model on DTensors, over gloo ----------------------------------------
 
 @pytest.fixture(scope="module")
 def dtensor_ranks(tmp_path_factory):
-    return W.spawn(4, str(tmp_path_factory.mktemp("dtensor")), ["dtensor_steps"],
-                   {})
+    return W.spawn(4, str(tmp_path_factory.mktemp("dtensor")),
+                   ["dtensor_steps", "dtensor_families"], {})
 
 
 def _close(got, want, what, atol=None):
@@ -173,6 +210,7 @@ def test_dtensor_model_equals_plain(dtensor_ranks):
             _close_tree(r["grads"], grads, f"grad kv{kv}")
     _check_train_step(dtensor_ranks)
     _check_decode(dtensor_ranks)
+    _check_families(dtensor_ranks)
 
 
 def _check_train_step(dtensor_ranks):
@@ -210,3 +248,34 @@ def _check_decode(dtensor_ranks):
         for got, want in zip(r["decode_logits"], logits, strict=True):
             _close(got, want, "decode logits")
         _close_tree(r["decode_cache"], cache, "cache")
+
+
+def _check_families(dtensor_ranks):
+    """The MoE (experts padded over ``model``, shared experts), xLSTM
+    (heads that do not split over ``model``) and zamba2 models on DTensors:
+    loss, gradients, two decode steps and the caches they write equal the
+    plain model's; at batch 1 the KV cache splits its sequence over
+    ``data``, and each step writes on the device that holds its
+    position."""
+    for case, *_ in W.FAMILY_CASES:
+        _, model, params, batch, _ = W.family_model(case)
+        b = batch["tokens"].shape[0]
+        if b > 1:
+            leaves = [p.requires_grad_() for p in tree_leaves(params)]
+            loss = model.loss(params, batch)
+            grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        cache = model.init_cache(b, W.FAMILY_CACHE, device="cpu")
+        with torch.no_grad():
+            logits = [model.decode_step(params, cache, batch["tokens"][:, :1],
+                                        pos)[0] for pos in W.FAMILY_POS]
+        for res in dtensor_ranks:
+            r = res["dtensor_families"][case]
+            if b > 1:
+                _close(r["loss"], loss, f"{case} loss")
+                _close_tree(r["grads"], grads, f"{case} grad")
+            for got, want in zip(r["decode_logits"], logits, strict=True):
+                _close(got, want, f"{case} decode logits")
+            _close_tree(r["decode_cache"], cache, f"{case} cache")
+        placed = dtensor_ranks[0]["dtensor_families"][case]["cache_placements"]
+        if b == 1:      # [units, B, T, KV, D]: the sequence over data
+            assert placed["attn/k"].startswith("(Shard(dim=2)"), placed

@@ -222,3 +222,42 @@ def test_train_step_products(early_stop, dtype):
     assert res["product_flops_by_dtype"] == (
         {"float32": want} if dtype == "float32"
         else {"bfloat16": want - f32, "float32": f32})
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b"])
+def test_moe_train_step_products(arch):
+    """The reduced MoE train steps (bfloat16, full remat) count four
+    forwards' products: attention, the float32 router over every expert,
+    every capacity slot of every expert through its FFN (the batched
+    products run empty slots too), the shared experts, the dense first
+    layers and the head over the padded vocabulary; less the dense layers'
+    down projection, which the checkpoint does not recompute.  A MoE
+    layer's recomputation runs to its aux loss, after its last product."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import pad_vocab
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="bfloat16")
+    b, s = 2, 32
+    model = M.build_model(cfg, model_axis=1)
+    params, opt = M.init_train_state(model, seed=0, device="cpu")
+    step = M.make_train_step(model, remat_policy="nothing")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32)}
+    res = op_cost.analyze(step, params, opt, batch, 0)
+    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    t, f, nd = b * s, cfg.d_ff_expert, cfg.first_dense_layers
+    attn = 2 * t * (d * h * hd + 2 * d * kv * hd + h * hd * d)
+    scores = 2 * b * h * s * s * hd
+    g_sz = min(cfg.moe_group_size, s)
+    slots = t // g_sz * cfg.n_experts * moe.capacity(cfg, g_sz)
+    experts = 2 * slots * 3 * d * f + 2 * t * 3 * d * cfg.n_shared_experts * f
+    router = 2 * t * d * cfg.n_experts
+    dense = attn + 2 * t * 3 * d * cfg.d_ff_dense
+    head = 2 * b * (s - 1) * d * pad_vocab(cfg.vocab_size)
+    f32 = 4 * ((cfg.n_layers - nd) * (scores + router) + nd * scores)
+    bf16 = 4 * ((cfg.n_layers - nd) * (attn + scores + experts)
+                + nd * (dense + scores) + head) - nd * 2 * t * d * cfg.d_ff_dense
+    assert res["product_flops_by_dtype"] == {"bfloat16": bf16, "float32": f32}

@@ -351,9 +351,85 @@ def dtensor_steps(rank, inputs):
     return out
 
 
+# The new families on DTensors: (case, arch, mesh shape (data, model),
+# config overrides, batch).  "moe_pad" pads 6 experts to 8 over model 4
+# and splits 2 kv heads 4 ways; "xlstm" splits its 2 heads 4 ways;
+# "zamba2_b1" decodes at batch 1, whose KV cache splits its sequence over
+# data.  The recurrent archs run in float64 (their float32 rounding grows
+# through the layers past DTENSOR_TOL).
+FAMILY_CASES = (
+    ("moe_pad", "granite-moe-3b-a800m", (1, 4), {"n_experts": 6}, 4),
+    ("moe_shared", "deepseek-moe-16b", (2, 2), {}, 4),
+    ("xlstm", "xlstm-350m", (1, 4), {"dtype": "float64"}, 4),
+    ("zamba2", "zamba2-7b", (2, 2), {"dtype": "float64"}, 4),
+    ("zamba2_b1", "zamba2-7b", (2, 2), {"dtype": "float64"}, 1),
+)
+FAMILY_SEQ, FAMILY_CACHE, FAMILY_POS = 16, 8, (0, 5)
+
+
+def family_model(case):
+    """One FAMILY_CASES case: ``(cfg, model, params, batch, mesh shape)``,
+    the same on every rank (and in the parent)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    _, arch, shape, over, batch = next(c for c in FAMILY_CASES if c[0] == case)
+    cfg = dataclasses.replace(configs.get_reduced(arch), **over)
+    model = M.build_model(cfg, model_axis=shape[1])
+    params = _plain(M.init_params(model, seed=0, device="cpu"))
+    return cfg, model, params, M.demo_batch(cfg, batch, FAMILY_SEQ, seed=3,
+                                            device="cpu"), shape
+
+
+def dtensor_families(rank, inputs):
+    """Each FAMILY_CASES case on DTensors over its mesh (params by
+    ``param_pspecs``, the batch by ``input_pspecs``, the cache by
+    ``cache_pspecs``, the active mesh set): the loss and its gradients
+    (not at batch 1) and two decode steps at FAMILY_POS; every result
+    gathered whole."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim.adamw import tree_items, tree_leaves, tree_unflatten
+
+    out = {}
+    for case, *_ in FAMILY_CASES:
+        _, model, params, batch, shape = family_model(case)
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(shape),
+                          mesh_dim_names=("data", "model"))
+        dparams, dbatch = _placed(params, batch, mesh)
+        b = batch["tokens"].shape[0]
+        sh.set_active_mesh(mesh)
+        try:
+            res = {}
+            if b > 1:
+                loss = model.loss(dparams, dbatch)
+                grads = torch.autograd.grad(loss, tree_leaves(dparams))
+                res["loss"] = loss.detach().full_tensor()
+                res["grads"] = _full(tree_unflatten(dparams, grads))
+            cache = model.init_cache(b, FAMILY_CACHE, device="cpu")
+            dcache = sh.distribute(cache, sh.cache_pspecs(cache, mesh, b), mesh)
+            tokens = sh.distribute(batch["tokens"][:, :1],
+                                   sh.input_pspecs({"t": batch["tokens"]},
+                                                   mesh)["t"], mesh)
+            with torch.no_grad():
+                res["decode_logits"] = [
+                    model.decode_step(dparams, dcache, tokens, pos)[0].full_tensor()
+                    for pos in FAMILY_POS]
+            res["decode_cache"] = _full(dcache)
+            res["cache_placements"] = {"/".join(k): str(v.placements)
+                                       for k, v in tree_items(dcache)}
+        finally:
+            sh.set_active_mesh(None)
+        out[case] = res
+    return out
+
+
 CHECKS = {f.__name__: f for f in (psum_equal, psum_mixed, psum_ef_steps, bf16,
                                   field_stacked, elastic, constrain, forward_bits,
-                                  dtensor_steps)}
+                                  dtensor_steps, dtensor_families)}
 
 
 def run(rank: int, world: int, store_path: str, out_dir: str, checks: list,

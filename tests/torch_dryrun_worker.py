@@ -58,9 +58,44 @@ def sharded_matmul():
         dist.destroy_process_group()
 
 
+# The new families' cells on a fake {data: 2, model: 16} world: a model
+# axis that splits none of the reduced presets' 2 or 4 heads and pads their
+# 8 experts to 16.  (case, arch, kind, seq, batch, microbatch)
+WIDE_MESH = {"data": 2, "model": 16}
+WIDE_CELLS = (
+    ("granite_train", "granite-moe-3b-a800m", "train", 32, 4, 2),
+    ("granite_decode", "granite-moe-3b-a800m", "decode", 64, 8, 1),
+    ("deepseek_train", "deepseek-moe-16b", "train", 32, 4, 2),
+    ("deepseek_decode", "deepseek-moe-16b", "decode", 64, 8, 1),
+    ("xlstm_train", "xlstm-350m", "train", 32, 4, 2),
+    ("xlstm_decode", "xlstm-350m", "decode", 64, 8, 1),
+    ("zamba2_train", "zamba2-7b", "train", 32, 4, 2),
+    ("zamba2_prefill", "zamba2-7b", "prefill", 32, 4, 1),
+    ("zamba2_decode_b1", "zamba2-7b", "decode", 64, 1, 1),
+)
+# The perf flags on the new families: (case, arch, kind, flags); each cell
+# at seq 32, batch 4.
+FLAG_CELLS = (
+    ("granite_prefill_flags", "granite-moe-3b-a800m", "prefill",
+     {"moe_group": 16, "seq_shard": True, "sp_residual": True}),
+    ("xlstm_decode_flags", "xlstm-350m", "decode",
+     {"moe_group": 16, "seq_shard": True, "skip_uncausal": True}),
+)
+
+
+def _lower(dryrun, cfg, shape, mesh, mb, **flags):
+    try:
+        rec = dryrun.lower_cell(cfg, shape, mesh, microbatch=mb, **flags)
+        rec["status"] = "ok"
+    except Exception as e:  # noqa: BLE001 — the test reports it
+        rec = {"status": "fail", "error": f"{type(e).__name__}: {e}"}
+    return rec
+
+
 def cells():
     """The reduced qwen3-4b's train and decode cells and a small
-    ``neurlz_enhance`` on a fake 2x2 world."""
+    ``neurlz_enhance`` on a fake 2x2 world; then, on a fake WIDE_MESH
+    world, the WIDE_CELLS and FLAG_CELLS."""
     from repro_torch import configs
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
@@ -71,14 +106,19 @@ def cells():
     try:
         for name, shape, mb in (("train", ShapeConfig("train_small", 64, 8, "train"), 2),
                                 ("decode", ShapeConfig("decode_small", 64, 8, "decode"), 1)):
-            try:
-                rec = dryrun.lower_cell(cfg, shape, mesh, microbatch=mb)
-                rec["status"] = "ok"
-            except Exception as e:  # noqa: BLE001 — the test reports it
-                rec = {"status": "fail", "error": f"{type(e).__name__}: {e}"}
-            out[name] = rec
+            out[name] = _lower(dryrun, cfg, shape, mesh, mb)
         out["enhance"] = dryrun.lower_neurlz_enhance(mesh, n_blocks=4, side=24,
                                                      batch_slices=2)
+    finally:
+        dist.destroy_process_group()
+    mesh = _world(WIDE_MESH)
+    try:
+        for case, arch, kind, seq, batch, mb in WIDE_CELLS:
+            out[case] = _lower(dryrun, configs.get_reduced(arch),
+                               ShapeConfig(case, seq, batch, kind), mesh, mb)
+        for case, arch, kind, flags in FLAG_CELLS:
+            out[case] = _lower(dryrun, configs.get_reduced(arch),
+                               ShapeConfig(case, 32, 4, kind), mesh, 1, **flags)
     finally:
         dist.destroy_process_group()
     return dryrun._jsonable(out)
