@@ -29,8 +29,9 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    its band holds (WIDE_INV_SHAPES, the striped route) byte for byte;
 4. the main path at the paper's Hurricane-ISABEL size (three fields of
    100×500×500 float32, synthetic, from a seed): ``NeurLZ(device="cuda")
-   .compress`` at rel_eb 1e-3 in strict mode, at MAIN_EPOCHS epochs (cut
-   from the paper's 100 to keep the run inside its time limit), ``save``,
+   .compress`` at rel_eb 1e-3 in strict mode, at DURABLE_EPOCHS epochs
+   (cut from the paper's 100 to keep the run inside its time limit; its
+   archive is the serial reference of the paths after it), ``save``,
    ``Archive.open``, ``decode_all``; the 1× bound is checked on every
    field, and for one field the engine's encoder helpers are run again from
    the archived weights and the decode must equal the encoder's final field
@@ -52,7 +53,7 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    retry), at DURABLE_EPOCHS epochs; the entries written one by one into
    an fsync'ed ``NLZSTRM2`` container, opened lazily and decoded field by
    field; ``cloud`` and ``w`` must equal, entry and decode bit for bit, the
-   serial engine's at those epochs (``NeurLZ.compress`` of the three
+   serial engine's at those epochs (the main path's archive: the three
    fields without telemetry or faults), ``precip`` its
    conventional reconstruction; then ``verify`` on the container and on
    a copy with a flipped bit, and ``repair=True`` on a copy cut before its
@@ -65,15 +66,15 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    equal to the main path's, and the main path's archive decoded by the
    batched engine equal to its serial decode byte for byte;
    ``stacked_bit_parity`` at the group's signature: where it holds, every
-   entry must equal the durable path's serial reference (same epochs) by
+   entry must equal the main path's archive (same epochs) by
    SHA-256, else each field's PSNR and bit rate are printed beside it;
 8. the streaming path on the same snapshot: the fields written as ``.npy``
    files into ``build/chip_smoke/npys/``, ``NeurLZ(group_size=1,
    max_resident_bytes=STREAM_BUDGET).compress_to`` of that directory into
    a container (the three fields' working sets exceed the budget) at
    DURABLE_EPOCHS epochs, decoded by ``streaming.iter_decompress`` and one
-   ROI of ``w``; every entry must equal the durable path's serial reference
-   (the main path's configuration at those epochs) by SHA-256, every
+   ROI of ``w``; every entry must equal the main path's archive (the
+   serial engine's at those epochs) by SHA-256, every
    decode its decode, the ROI its slice, the ledger's peak stay within the
    budget and the ledger evict;
    it prints the compress and decode times, the writer thread's busy and
@@ -526,13 +527,14 @@ def conv_bwd_phase(dev, report: dict) -> dict:
 
 GROUP_F = 3    # fields of the batched path's one group
 # Training cut from the paper's 100 epochs on every path, so that the run
-# stays inside its time limit on a slower host (the batched and streaming
-# paths at DURABLE_EPOCHS, held against the durable path's serial reference
-# at the same epochs; 10 until the recurrent families' lm and train rows
-# came; the streaming path at 100 until the dist phase came, when one run
-# took 1,181 s of the 1,200; the main path at 100 until the dryrun phase
-# came, when one run took 1,136 s).
-MAIN_EPOCHS = 50
+# stays inside its time limit on a slower host (the durable, batched and
+# streaming paths at DURABLE_EPOCHS, held against the main path's archive,
+# the serial engine's at the same epochs; 10 until the recurrent families'
+# lm and train rows came; the streaming path at 100 until the dist phase
+# came, when one run took 1,181 s of the 1,200; the main path at 100 until
+# the dryrun phase came, when one run took 1,136 s, then at 50, with the
+# durable path compressing its own serial reference, until the dry run's
+# other families came, when one run took 1,014 s).
 LORENZO_EPOCHS = 5
 DURABLE_EPOCHS = 5
 
@@ -1265,6 +1267,7 @@ def lorenzo_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
 
     raw_mb = sum(x.nbytes for x in fields.values()) / 1e6
     path = ROOT / "build" / "chip_smoke" / "hurricane_lorenzo.nlz"
+    path.parent.mkdir(parents=True, exist_ok=True)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1326,20 +1329,19 @@ def lorenzo_path(dev, fields, epochs: int, report: dict) -> tuple[dict, dict]:
     return launches, {"archive": opened.to_dict(), "decoded": decoded}
 
 
-def durable_path(dev, fields, epochs: int, main: dict, report: dict
-                 ) -> tuple[dict, dict]:
+def durable_path(dev, fields, epochs: int, main: dict, report: dict) -> dict:
     """The main path's configuration with telemetry and faults, through a
     durable container: ``train.precip`` is injected (``precip`` degrades to
     conv-only), the first ``decode.entry`` read is injected and healed by a
-    retry.  ``main`` is what :func:`main_path` kept.  Returns ``(launches,
-    serial)``, ``serial`` the serial engine's entries of all three fields at
-    these epochs (packed), which the batched path is held against."""
+    retry.  ``main`` is what :func:`main_path` kept at the same epochs, the
+    serial engine's entries, which this path's are held against.  Returns
+    the launches."""
     import torch
     import repro_torch
     from repro_torch import kernels
     from repro_torch.compressors import szlike
     from repro_torch.core import archive as arc_io
-    from repro_torch.core import metrics, regulation
+    from repro_torch.core import regulation
 
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1391,24 +1393,12 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict
           f"degraded {arc['timing']['degraded_fields']}")
 
     # What the serial engine writes for the three fields at these epochs,
-    # without telemetry or faults: each field's entry depends on that field
-    # alone (its own bound, conventional payload and fresh generator).
-    t_ref = time.perf_counter()
-    ref_sess = repro_torch.NeurLZ(epochs=epochs, device=dev)
-    ref_arc = ref_sess.compress(fields, rel_eb=1e-3)
-    torch.cuda.synchronize()
-    t_ref = time.perf_counter() - t_ref
-    ref_dec = ref_sess.decompress(ref_arc)
-    reference = {n: (arc_io.dumps(ref_arc["fields"][n]), ref_dec[n])
-                 for n in fields}
-    serial = {"epochs": epochs, "compress_s": t_ref,
-              "entries": {n: reference[n][0] for n in fields},
-              "decoded": {n: reference[n][1] for n in fields},
-              "per_field": {n: {"psnr_enhanced": metrics.psnr(x, ref_dec[n]),
-                                "bitrate": ref_arc.bitrate(n)["bitrate"],
-                                "final_loss": ref_arc["fields"][n][
-                                    "loss_history"][-1]}
-                            for n, x in fields.items()}}
+    # without telemetry or faults, is the main path's archive: each field's
+    # entry depends on that field alone (its own bound, conventional
+    # payload and fresh generator).
+    check(main["epochs"] == epochs, f"the main path trained {main['epochs']} "
+          f"epochs, this path {epochs}")
+    reference = {n: (main["entries"][n], main["decoded"][n]) for n in fields}
     per_field = {}
     for name, x in fields.items():
         e = opened.entry(name)
@@ -1516,7 +1506,7 @@ def durable_path(dev, fields, epochs: int, main: dict, report: dict
     print("durable_path", json.dumps({k: v for k, v in out.items()
                                       if k not in ("per_field", "spans")}))
     report["durable_path"] = out
-    return launches, serial
+    return launches
 
 
 def batched_path(dev, fields, epochs: int, main: dict, serial: dict,
@@ -1525,8 +1515,8 @@ def batched_path(dev, fields, epochs: int, main: dict, serial: dict,
     the snapshot's three fields as one group trained stacked through the
     grouped kernels, decoded with ``engine="batched"``.  ``main`` is what
     :func:`main_path` kept (its conventional payloads and archive);
-    ``serial`` the serial engine's entries at ``epochs``, from
-    :func:`durable_path`."""
+    ``serial`` the serial engine's entries at ``epochs`` (the main path's
+    archive)."""
     import hashlib
     import torch
     import repro_torch
@@ -2174,8 +2164,7 @@ TRAIN_GRAD_TOL = 1e-4     # |Δ| <= TRAIN_GRAD_TOL * max|CPU leaf|
 TRAIN_LOSSY_EB = 1e-5     # the lossy drill's weight bound (relative)
 
 
-def train_step_flops(cfg, batch: int, seq: int,
-                     model_axis: int = 1) -> tuple[float, float]:
+def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
     """``(bf16, float32)`` operations of the products of one step under
     full remat: the layers' forward twice (the run and its recomputation),
     the head's forward twice (each loss chunk recomputed), and the
@@ -2191,8 +2180,9 @@ def train_step_flops(cfg, batch: int, seq: int,
     each 128-position chunk, and the state's read C·S and write B⊗x;
     mLSTM's q·k scores and their product with v over the full square of a
     chunk, and q·S and the S update; sLSTM's recurrent product per step.
-    A MoE layer counts attention, the router (float32, over the experts
-    padded to ``model_axis``), every capacity slot of every expert through
+    A MoE layer counts attention, the router (float32, over the model's
+    ``n_experts``: the card's model is built with ``model_axis=1``, so no
+    expert is padded), every capacity slot of every expert through
     its FFN (each group's ``cap`` slots an expert, filled or not: the
     port's batched products run them all) and the shared experts; its
     dense first layers count as dense layers of ``d_ff_dense``, and its
@@ -2232,14 +2222,14 @@ def train_step_flops(cfg, batch: int, seq: int,
         from repro_torch.models import moe
         from repro_torch.models.transformer import pad_vocab
 
-        e_pad = moe.padded_experts(cfg.n_experts, model_axis)
+        n_exp = cfg.n_experts
         g_sz = min(cfg.moe_group_size, seq)
-        slots = tokens // g_sz * e_pad * moe.capacity(cfg, g_sz)
+        slots = tokens // g_sz * n_exp * moe.capacity(cfg, g_sz)
         f = cfg.d_ff_expert
         attn_b, attn_f = attn_mlp(0)
         layer = (attn_b + 2 * slots * 3 * d * f
                  + 2 * tokens * 3 * d * cfg.n_shared_experts * f,
-                 attn_f + 2 * tokens * d * e_pad)
+                 attn_f + 2 * tokens * d * n_exp)
         nd = cfg.first_dense_layers
         blocks = [(cfg.n_layers - nd, layer), (nd, attn_mlp(cfg.d_ff_dense))]
         vocab = pad_vocab(cfg.vocab_size)
@@ -3370,22 +3360,28 @@ def _run(args, shape, dev, smi, report, t_start, dry_procs) -> int:
               "(the shape is never cut)")
     # Each path runs with the counts set to 0 just before it; every kernel
     # of a path must have launched in it.
-    main_launches, main_kept = timed("main", main_path, dev, fields,
-                                     min(args.epochs, MAIN_EPOCHS), report)
     cut = min(args.epochs, DURABLE_EPOCHS)
+    main_launches, main_kept = timed("main", main_path, dev, fields, cut, report)
     lorenzo_launches, lorenzo_kept = timed(
         "lorenzo", lorenzo_path, dev, fields, min(args.epochs, LORENZO_EPOCHS),
         report)
-    durable_launches, serial_cut = timed("durable", durable_path, dev, fields, cut,
-                                         main_kept, report)
+    durable_launches = timed("durable", durable_path, dev, fields, cut,
+                             main_kept, report)
+    # The main path's archive is the serial engine's at these epochs: the
+    # reference of the batched, streaming and serve paths.
+    serial_cut = {k: main_kept[k] for k in ("epochs", "compress_s", "entries",
+                                            "decoded")}
+    serial_cut["per_field"] = {
+        n: {k: f[k] for k in ("psnr_enhanced", "bitrate", "final_loss")}
+        for n, f in main_kept["per_field"].items()}
     by_path = {"main": main_launches,
                "lorenzo": lorenzo_launches,
                "durable": durable_launches,
                "batched": timed("batched", batched_path, dev, fields, cut,
                                 main_kept, serial_cut, report)}
     # The streaming path trains at the durable path's epochs (cut from the
-    # paper's 100 to keep the run inside its limit), held against that
-    # path's serial reference; the serve path serves its container.
+    # paper's 100 to keep the run inside its limit), held against the main
+    # path's archive; the serve path serves its container.
     by_path["streaming"], container = timed(
         "streaming", streaming_path, dev, fields, cut, serial_cut, report)
     by_path["serve"] = timed("serve", serve_path, dev, min(args.epochs, SERVE_EPOCHS),

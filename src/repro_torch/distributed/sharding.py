@@ -356,6 +356,84 @@ class ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+class _LocalOf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, grad_placements):
+        ctx.mesh, ctx.own = t.device_mesh, tuple(t.placements)
+        ctx.grad_placements = tuple(grad_placements)
+        local = t.to_local()
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        gd = DTensor.from_local(g.contiguous(), ctx.mesh, ctx.grad_placements,
+                                run_check=False)
+        return gd.redistribute(ctx.mesh, ctx.own), None
+
+
+def local_of(t, grad_placements):
+    """``t.to_local()`` for a local computation whose gradient on each
+    device is placed as ``grad_placements`` says (partial over an axis
+    where each device saw part of the work); the gradient is redistributed
+    to ``t``'s own placements right there.  ``to_local(grad_placements=)``
+    would leave a partial gradient to the next operation's backward,
+    whose choice of reduction differs between torch versions."""
+    return _LocalOf.apply(t, grad_placements)
+
+
+class _PlacedAs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, placements, grad_placements):
+        ctx.mesh, ctx.grad_placements = mesh, tuple(grad_placements)
+        return DTensor.from_local(t, mesh, placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.redistribute(ctx.mesh, ctx.grad_placements).to_local()
+        return g.contiguous(), None, None, None
+
+
+def placed_as(t, mesh, placements, grad_placements):
+    """``DTensor.from_local(t, mesh, placements)`` whose gradient comes
+    back to ``t`` placed as ``grad_placements``: for an output partial over
+    an axis, the whole gradient of each device's rows (the gradient of a
+    sum is every addend's), on every torch version alike."""
+    return _PlacedAs.apply(t, mesh, placements, grad_placements)
+
+
+def column_products(x, ws) -> list:
+    """``[x @ w for w in ws]``: ``x`` 2-D rows, each ``w`` [k, n].  On
+    DTensors, the ``w`` split over their columns (tensor parallel, after
+    :func:`gather_fsdp`) multiply ``x``'s local rows on each device, and
+    their partial gradients of ``x`` are added there and reduced once
+    (:func:`local_of`); a ``w`` split over nothing multiplies as a
+    DTensor.  DTensor itself may reduce each product's gradient on its own
+    (torch 2.11) or add them first (torch 2.13)."""
+    if not isinstance(x, DTensor):
+        return [x @ w for w in ws]
+    mesh = x.device_mesh
+    split = [w for w in ws if Shard(1) in w.placements]
+    if not split:
+        return [x @ w for w in ws]
+    axes = {i for w in split for i, pl in enumerate(w.placements) if pl == Shard(1)}
+    if any({i for i, pl in enumerate(w.placements) if pl == Shard(1)} != axes
+           for w in split):
+        raise NotImplementedError("weights split over different axes")
+    rows = tuple(x.placements)
+    xl = local_of(x, [Partial() if i in axes else pl for i, pl in enumerate(rows)])
+    out_pl = [Shard(1) if i in axes else pl for i, pl in enumerate(rows)]
+    outs = []
+    for w in ws:
+        if Shard(1) not in w.placements:
+            outs.append(x @ w)
+            continue
+        wl = ContiguousGrad.apply(w.to_local(grad_placements=[
+            pl if i in axes else Partial() if rows[i] == Shard(0) else Replicate()
+            for i, pl in enumerate(w.placements)]))
+        outs.append(placed_as(xl @ wl, mesh, out_pl, out_pl))
+    return outs
+
+
 def _row_placements(t) -> tuple:
     """``t``'s placements of its rows alone: split where it splits dim 0,
     replicated over every other axis."""
@@ -407,7 +485,7 @@ def on_rows(fn, rows, weights=()):
     out = fn(*(row(t) for t in rows), *(weight(w) for w in weights))
 
     def place(o):
-        return DTensor.from_local(o.contiguous(), mesh, pl, run_check=False)
+        return placed_as(o.contiguous(), mesh, pl, pl)
     return tuple(place(o) for o in out) if isinstance(out, tuple) else place(out)
 
 
@@ -455,4 +533,42 @@ def constrain(x, spec: tuple):
     want = placements(P(*resolved), mesh)
     if tuple(x.placements) == want and x.device_mesh == mesh:
         return x
+    if any(p.is_partial() for p in x.placements):
+        # A row-parallel product's sums reduced into the residual stream:
+        # every addend's gradient is the sum's, so the gradient comes back
+        # placed as ``x`` with each partial axis replicated.  DTensor's own
+        # backward may hand a partial gradient on to the product instead,
+        # whose backward then gathers the weight and repeats the product on
+        # every device of that axis.
+        return pinned(x, want, tuple(Replicate() if p.is_partial() else p
+                                     for p in x.placements))
     return x.redistribute(mesh, want)
+
+
+class _Pinned(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, want, grad_placements):
+        ctx.mesh, ctx.grad_placements = x.device_mesh, tuple(grad_placements)
+        if tuple(x.placements) == tuple(want):
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.grad_placements), None, None
+
+
+def pinned(x, want, grad_placements):
+    """``x.redistribute(x.device_mesh, want)`` whose gradient is
+    redistributed to ``grad_placements`` right there, whatever placement it
+    arrives in: the backward's collectives are then the port's choice, the
+    same on every torch version, not DTensor's."""
+    return _Pinned.apply(x, want, grad_placements)
+
+
+def grad_like(t):
+    """A DTensor ``t`` whose gradient is placed as ``t`` (see
+    :func:`pinned`); any other ``t`` as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return pinned(t, t.placements, t.placements)

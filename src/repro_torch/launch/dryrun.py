@@ -35,11 +35,11 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
         --single-pod --out /tmp/dry
     PYTHONPATH=src python -m repro_torch.launch.dryrun --cell neurlz_enhance
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 8
 Options: --multi-pod / --single-pod (default: both), --out (default
 experiments/dryrun), --remat {nothing,dots}, --seq-shard, --microbatch,
---skip-uncausal, --moe-group, --sp-residual, --tag, --resume, --jobs N
-(N processes at once, one a cell and mesh).
+--skip-uncausal, --moe-group, --sp-residual, --tag, --resume.  To spread
+``--all`` over processes, run one ``--arch A --shape S --single-pod`` (or
+``--multi-pod``) a process, e.g. through ``xargs -P 8``.
 """
 from __future__ import annotations
 
@@ -426,9 +426,6 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--resume", action="store_true",
                     help="skip cells whose JSON already exists with status ok")
-    ap.add_argument("--jobs", type=int, default=1,
-                    help="lower the cells in this many processes at once, "
-                         "one process a cell and mesh")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
@@ -465,9 +462,6 @@ def main(argv=None) -> int:
                     pass
             todo.append((mesh_name, multi, arch, shape, tag, path))
 
-    if args.jobs > 1:
-        return _run_jobs(args, todo)
-
     import torch.distributed as dist
 
     failures = 0
@@ -482,64 +476,6 @@ def main(argv=None) -> int:
                 failures += not _run_one(args, mesh, mesh_name, arch, shape, path)
         finally:
             dist.destroy_process_group()
-    print(f"done; failures={failures}")
-    return 1 if failures else 0
-
-
-def _run_jobs(args, todo) -> int:
-    """``todo``'s cells, each a process of its own (``--arch A --shape S``
-    or ``--cell``, on its one mesh, the perf flags passed on), ``args.jobs``
-    at once, train and prefill cells first; each one's output in its
-    JSON's ``.log``; ``failures=N`` counts the records not ``ok``."""
-    import subprocess
-    import sys
-
-    flags = ["--remat", args.remat, "--microbatch", str(args.microbatch),
-             "--out", args.out]
-    flags += ["--seq-shard"] * args.seq_shard + ["--skip-uncausal"] * args.skip_uncausal
-    flags += ["--sp-residual"] * args.sp_residual
-    if args.moe_group is not None:
-        flags += ["--moe-group", str(args.moe_group)]
-    if args.tag:
-        flags += ["--tag", args.tag]
-    slow = ("train", "prefill")
-    todo = sorted(todo, key=lambda t: not any(k in (t[3] or "") for k in slow))
-    running, failures = [], 0
-
-    def start(item) -> None:
-        _, multi, arch, shape, tag, path = item
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-               "--multi-pod" if multi else "--single-pod", *flags]
-        cmd += (["--cell", arch] if shape is None
-                else ["--arch", arch, "--shape", shape])
-        if os.path.exists(path):
-            os.remove(path)
-        log = open(path[:-len(".json")] + ".log", "w")
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-        running.append((proc, log, tag, path))
-
-    def finish(proc, log, tag, path) -> bool:
-        log.close()
-        try:
-            with open(path) as f:
-                rec = json.load(f)
-        except (OSError, ValueError):
-            rec = {"status": "fail",
-                   "error": f"exit {proc.returncode}, no record"}
-        ok = rec.get("status") == "ok"
-        print(f"=== {tag} ===\n  " + (summary(rec) if ok else
-              f"FAIL: {str(rec.get('error'))[:300]}"), flush=True)
-        return ok
-
-    while todo or running:
-        while todo and len(running) < args.jobs:
-            start(todo.pop(0))
-        done = [item for item in running if item[0].poll() is not None]
-        if not done:
-            time.sleep(0.5)
-        for item in done:
-            running.remove(item)
-            failures += not finish(*item)
     print(f"done; failures={failures}")
     return 1 if failures else 0
 

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..distributed.sharding import ContiguousGrad, gather_fsdp, join, whole_rows
+from ..distributed.sharding import (ContiguousGrad, gather_fsdp, join, local_of,
+                                     pinned, placed_as, whole_rows)
 from . import mlp as mlp_mod
 from .layers import activation, dense_init, normal
 
@@ -96,23 +97,21 @@ def route(p, cfg, xt):
     return (probs, *_choose(probs, cfg, xt.shape[1]))
 
 
-def _experts(cfg, xt, topv, topi, pos, keep, wg, wu, wd, first: int = 0):
+def _experts(cfg, xt, topv, topi, pos, keep, wg, wu, wd):
     """The routed experts' output ``[G, S, D]`` of tokens ``xt [G, S, D]``
-    through experts ``first .. first + E`` (``wg``, ``wu`` [E, D, F],
-    ``wd`` [E, F, D]); choices of other experts count 0.
+    through experts ``wg``, ``wu`` [E, D, F], ``wd`` [E, F, D]: each choice
+    ``topi`` indexes them, and a choice that is not ``keep`` counts 0.
 
     Dispatch: each kept (token, k) into slot e·cap + pos of its group's
-    [E·C, D] buffer, where it is the only token; dropped choices, and
-    choices of other experts, go to a spare last slot that is thrown away.
-    No host sync: the path stays asynchronous on CUDA."""
+    [E·C, D] buffer, where it is the only token; the other choices go to a
+    spare last slot that is thrown away.  No host sync: the path stays
+    asynchronous on CUDA."""
     g, g_sz, d = xt.shape
     k = cfg.top_k
     n_exp = wg.shape[0]
     cap = capacity(cfg, g_sz)
-    local = topi - first
-    mine = keep & (local >= 0) & (local < n_exp)
     spare = n_exp * cap
-    dest = torch.where(mine, local * cap + pos, spare)           # [G, S, K]
+    dest = torch.where(keep, topi * cap + pos, spare)            # [G, S, K]
     gi = torch.arange(g, device=xt.device).view(g, 1, 1).expand_as(dest)
     xe = torch.zeros((g, spare + 1, d), dtype=xt.dtype, device=xt.device)
     xe[gi, dest] = xt[:, :, None, :].expand(g, g_sz, k, d)
@@ -125,11 +124,9 @@ def _experts(cfg, xt, topv, topi, pos, keep, wg, wu, wd, first: int = 0):
     ye = torch.bmm(h, wd)                                        # [E, G*C, D]
     ye = ye.reshape(n_exp, g, cap, d).transpose(0, 1).reshape(g, n_exp * cap, d)
 
-    # Combine: gather each choice's expert output, weight it (0 if dropped
-    # or another device's).
-    slot = (torch.clamp(local, 0, n_exp - 1) * cap
-            + torch.clamp(pos, max=cap - 1))                     # [G, S, K]
-    w = (topv * mine).to(xt.dtype)
+    # Combine: gather each choice's expert output, weight it (0 if dropped).
+    slot = topi * cap + torch.clamp(pos, max=cap - 1)            # [G, S, K]
+    w = (topv * keep).to(xt.dtype)
     picked = ye.gather(1, slot.reshape(g, g_sz * k, 1).expand(-1, -1, d))
     return (picked.reshape(g, g_sz, k, d) * w[..., None]).sum(2)
 
@@ -172,8 +169,11 @@ def _forward_sharded(p, cfg, x):
     tensors, routes its groups, keeps the choices that land in its own
     experts, runs those experts' FFNs on FSDP-gathered weights and returns
     its part of the output: partial over ``model``, summed where it joins
-    the residual stream.  The aux loss is the Switch loss over all experts,
-    on DTensors (each device's expert counts of its rows).
+    the residual stream.  The aux loss is the Switch loss over all experts
+    (each device's means over its rows, reduced).  Every gradient that
+    crosses between DTensors and local tensors is placed explicitly
+    (``local_of``, ``placed_as``, ``pinned``), so the backward's
+    collectives are the same on every torch version.
 
     The counted products are the capacity slots of the device's experts
     (filled or not) through their FFNs.  The JAX package dispatches and
@@ -201,26 +201,53 @@ def _forward_sharded(p, cfg, x):
     # Each device's output, and so the gradient of its inputs, is its
     # experts' part: partial over ``model``.
     part = [Partial() if i == mi and ep else pl for i, pl in enumerate(rows)]
-    wl = [ContiguousGrad.apply(w.to_local(grad_placements=[
-        pl if i == mi else Partial() if rows[i] == Shard(0) else Replicate()
-        for i, pl in enumerate(w.placements)])) for w in ws]
-    xl = ContiguousGrad.apply(x.to_local(grad_placements=part))
-    prl = ContiguousGrad.apply(probs.to_local(grad_placements=part))
+
+    def local_w(w):
+        return ContiguousGrad.apply(w.to_local(grad_placements=[
+            pl if i == mi else Partial() if rows[i] == Shard(0) else Replicate()
+            for i, pl in enumerate(w.placements)]))
+    wl = [local_w(w) for w in ws]
+    # The shared experts, split over ``model`` as the dense MLP is (column,
+    # then row parallel), run on the local shards too: their output is
+    # partial over ``model`` like the experts', and ``x``'s gradient is
+    # reduced once for both.
+    shared = {k: gather_fsdp(w) for k, w in p.get("shared", {}).items()}
+    if shared and ep != (mi is not None and all(
+            w.placements[mi] != Replicate() for w in shared.values())):
+        raise NotImplementedError("shared experts split over model unlike "
+                                  "the routed experts")
+    # Their gradients are reduced over ``model`` here, each into the rows'
+    # placement: one all-reduce each, on every torch version alike.
+    xl = local_of(x, part)
+    prl = local_of(probs, part)
     bl = xl.shape[0]
     if (bl * s) % g_sz:
         raise ValueError(f"a device's {bl}x{s} tokens do not split into "
                          f"groups of {g_sz}")
     g = (bl * s) // g_sz
-    first = mesh.get_coordinate()[mi] * wl[0].shape[0] if ep else 0
     topv, topi, pos, keep = _choose(prl.reshape(g, g_sz, e_pad), cfg, g_sz)
-    y = _experts(cfg, xl.reshape(g, g_sz, d), topv, topi, pos, keep, *wl,
-                 first=first)
-    out = DTensor.from_local(y.reshape(bl, s, d), mesh, part, run_check=False)
+    # This device's experts are first .. first + n_exp: the choices of
+    # other experts are not kept here.
+    n_exp = wl[0].shape[0]
+    first = mesh.get_coordinate()[mi] * n_exp if ep else 0
+    local = topi - first
+    mine = keep & (local >= 0) & (local < n_exp)
+    y = _experts(cfg, xl.reshape(g, g_sz, d), topv,
+                 torch.clamp(local, 0, n_exp - 1), pos, mine, *wl)
+    y = y.reshape(bl, s, d)
+    if shared:
+        y = y + mlp_mod.forward({k: local_w(w) for k, w in shared.items()},
+                                xl, cfg.act)
+    out = placed_as(y, mesh, part, rows)
 
-    if cfg.n_shared_experts:
-        out = out + mlp_mod.forward(p["shared"], x, cfg.act)
-
-    counts = _one_hot(topi, e_pad).sum(2).float().reshape(bl, s, e_pad)
-    fe = DTensor.from_local(counts, mesh, rows, run_check=False).mean(dim=(0, 1))
-    aux = cfg.n_experts * torch.sum(probs.mean(dim=(0, 1)) * fe)
+    # The Switch loss: each device's means over its rows (every device of
+    # ``model`` computes the same), partial over the axes that split the
+    # rows, reduced here; their gradients come back whole to each device.
+    n_tok = x.shape[0] * s
+    red = [Partial() if pl == Shard(0) else Replicate() for pl in rows]
+    rep = [Replicate()] * mesh.ndim
+    me = placed_as(local_of(probs, rows).sum(dim=(0, 1)) / n_tok, mesh, red, rep)
+    fe = DTensor.from_local(_one_hot(topi, e_pad).sum(dim=(0, 1, 2)).float() / n_tok,
+                            mesh, red, run_check=False)
+    aux = cfg.n_experts * torch.sum(pinned(me, rep, rep) * fe.redistribute(mesh, rep))
     return out, aux

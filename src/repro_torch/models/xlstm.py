@@ -30,7 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import assign, gather_fsdp, on_rows, whole_rows
+from ..distributed.sharding import (assign, column_products, gather_fsdp,
+                                     grad_like, on_rows, whole_rows)
 from .layers import compute_dtype, dense_init, normal, rmsnorm, zeros
 from .ssm import _tril_cumsum
 
@@ -80,15 +81,19 @@ def m_forward(p, cfg, x, chunk: int = 128):
     run on DTensors as they come; the cell runs on each device's rows
     (:func:`sharding.on_rows`), whole heads on every device of ``model``:
     xlstm-350m's 4 heads do not split 16 ways."""
-    L = x.shape[1]
+    bsz, L = x.shape[:2]
     up = whole_rows(x) @ gather_fsdp(p["w_up_in"])
     xu, z = torch.chunk(up, 2, dim=-1)
     chunk = min(chunk, L)
     if L % chunk:
         raise ValueError(f"sequence {L} does not split into chunks of {chunk}")
+    # On DTensors the gradient of ``xu`` (the four products' partial sums,
+    # added first) and of ``z`` come back placed as the rows.
+    projs = column_products(xu.reshape(bsz * L, -1), [
+        gather_fsdp(p[k]) for k in ("w_q_in", "w_k_in", "w_v_in", "w_if")])
     y = on_rows(lambda *a: _m_cell(cfg, chunk, *a),
-                tuple(xu @ gather_fsdp(p[k])
-                      for k in ("w_q_in", "w_k_in", "w_v_in", "w_if")))
+                tuple(t.reshape(bsz, L, -1) for t in projs))
+    z = grad_like(z)
     y = y.to(x.dtype)
     y = rmsnorm(y, p["norm_scale"], cfg.norm_eps) * F.silu(z)
     return y @ gather_fsdp(p["w_down_out"])

@@ -143,6 +143,16 @@ def test_fake_world_cells(cells):
         assert r["dominant"] in ("compute", "memory", "collective")
         assert cost["flops_per_device"] > 0 and rec["collectives"]["wire_bytes"] > 0
 
+    # Every product of the 2x2 train step is split four ways: no device
+    # repeats another's (a partial gradient handed to a row-parallel
+    # product's backward made it gather the weight and repeat the product).
+    plain = cells["train_plain"]
+    assert plain["status"] == "ok", plain.get("error")
+    assert plain["n_chips"] == 1 and plain["collectives"]["wire_bytes"] == 0
+    assert {k: 4 * v for k, v in
+            cells["train"]["cost"]["product_flops_by_dtype"].items()} == \
+        plain["cost"]["product_flops_by_dtype"]
+
     rec = cells["enhance"]
     assert rec["n_chips"] == 4 and rec["blocks_per_device"] == 1
     assert rec["collectives"]["per_kind_count"] == {"all-reduce": 1}

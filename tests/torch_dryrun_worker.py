@@ -92,19 +92,28 @@ def _lower(dryrun, cfg, shape, mesh, mb, **flags):
     return rec
 
 
+class _OneDevice:
+    """A 1x1 mesh's names and sizes: ``lower_cell`` places nothing on it,
+    so it needs no world."""
+    mesh_dim_names = ("data", "model")
+    shape = (1, 1)
+
+
 def cells():
     """The reduced qwen3-4b's train and decode cells and a small
-    ``neurlz_enhance`` on a fake 2x2 world; then, on a fake WIDE_MESH
-    world, the WIDE_CELLS and FLAG_CELLS."""
+    ``neurlz_enhance`` on a fake 2x2 world, and the train cell's plain step
+    (one device); then, on a fake WIDE_MESH world, the WIDE_CELLS and
+    FLAG_CELLS."""
     from repro_torch import configs
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
 
-    mesh = _world({"data": 2, "model": 2})
     cfg = configs.get_reduced("qwen3-4b")
-    out = {}
+    train = ShapeConfig("train_small", 64, 8, "train")
+    out = {"train_plain": _lower(dryrun, cfg, train, _OneDevice(), 2)}
+    mesh = _world({"data": 2, "model": 2})
     try:
-        for name, shape, mb in (("train", ShapeConfig("train_small", 64, 8, "train"), 2),
+        for name, shape, mb in (("train", train, 2),
                                 ("decode", ShapeConfig("decode_small", 64, 8, "decode"), 1)):
             out[name] = _lower(dryrun, cfg, shape, mesh, mb)
         out["enhance"] = dryrun.lower_neurlz_enhance(mesh, n_blocks=4, side=24,
