@@ -24,6 +24,8 @@ once for both.
 """
 import io
 import math
+import os
+import sys
 
 import jax
 import numpy as np
@@ -51,6 +53,10 @@ from repro_torch import streaming
 from repro_torch.core import archive as arc_io
 from repro_torch.core import conv_stage, metrics, neurlz, online_trainer
 from repro_torch.core import skipping_dnn as port_dnn
+
+# The ported driver (examples/) and the paper sets' records (scripts/).
+_ROOT = os.path.join(os.path.dirname(__file__), "..")
+sys.path[:0] = [os.path.join(_ROOT, "examples"), os.path.join(_ROOT, "scripts")]
 
 # The suite runs in parallel workers on a few cores: one intra-op thread
 # per worker keeps the port's tests from crowding out the others.
@@ -227,6 +233,66 @@ def test_main_path_matches_reference(tmp_path, ref_main):
         # The port decoding the reference's weights: float32 tolerance.
         eb = ref_arc["fields"][name]["abs_eb"]
         assert _max_err(port_on_ref[name], ref_dec[name]) <= 1e-3 * eb
+
+
+def test_compress_field_session_matches_reference():
+    """The ported driver's session (``compress_field_torch.build_session``:
+    the batched engine, cross-field learning as ``DEFAULT_CROSS_FIELD``
+    has it, so every enhancer takes 2 channels) against the reference's
+    serial engine with the same cross-field map, from the reference's own
+    draws (``scripts/paper_reference.draws``, as its records carry them)."""
+    import compress_field_torch as cft
+    import paper_reference
+
+    cross = ref_fields.DEFAULT_CROSS_FIELD["hurricane"]
+    ref_arc = repro.NeurLZ(engine="serial", lowering="eager", conv_batch=False,
+                           epochs=EPOCHS, seed=SEED, cross_field=cross,
+                           mode="strict").compress(FIELDS, rel_eb=REL_EB)
+    ref_dec = ref_arc.decode_all()
+    init, sched = paper_reference.draws("hurricane", SHAPE, EPOCHS, SEED)
+    args = cft.build_parser().parse_args(
+        ["--dataset", "hurricane", "--shape", ",".join(map(str, SHAPE)),
+         "--epochs", str(EPOCHS), "--device", "cpu"])
+    sess = cft.build_session(args)
+    assert sess.config.engine == "batched"
+    arc = sess.compress(FIELDS, rel_eb=REL_EB, init_params=init,
+                        batch_schedules=sched)
+    dec = sess.decompress(arc)
+    for name, x in FIELDS.items():
+        e, re_ = arc["fields"][name], ref_arc["fields"][name]
+        assert e["aux"] == list(cross[name]) == re_["aux"]
+        assert e["net"]["c_in"] == re_["net"]["c_in"] == 2
+        for key in ("codes", "unpred", "literals"):
+            assert e["conv"][key]["payload"] == re_["conv"][key]["payload"]
+        assert e["abs_eb"] == re_["abs_eb"] and e["stats"] == re_["stats"]
+        assert _max_err(dec[name], x) <= e["abs_eb"]
+        np.testing.assert_allclose(e["loss_history"], re_["loss_history"],
+                                   rtol=1e-4)
+        assert abs(metrics.psnr(x, dec[name])
+                   - metrics.psnr(x, ref_dec[name])) <= 0.05
+        assert arc.bitrate(name)["bitrate"] == pytest.approx(
+            ref_arc.bitrate(name)["bitrate"], rel=0.02)
+
+
+def test_smoke_draws_are_the_reference_draws():
+    """``miranda-cf-smoke.npz`` holds what the JAX package draws for the
+    set: ``init_params`` at ``c_in=2`` and ``epoch_batches`` at n=32."""
+    import paper_sets
+    import paper_reference
+    spec = paper_sets.SETS["miranda-cf-smoke"]
+    want_p, want_s = paper_reference.draws(spec["dataset"], spec["shape"],
+                                           spec["epochs"])
+    got_p, got_s = paper_sets.load_draws("miranda-cf-smoke")
+    assert sorted(got_p) == sorted(want_p) == sorted(got_s)
+    for field in want_p:
+        want = paper_sets.flatten_params(want_p[field])
+        got = paper_sets.flatten_params(got_p[field])
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].tobytes() == want[k].tobytes(), (field, k)
+        assert got["conv_in/w"].shape == (3, 3, 2, 4)
+        assert np.array_equal(got_s[field], want_s[field])
+        assert got_s[field].shape == (5, 3, 10)
 
 
 def test_injected_degraded_entry_equals_the_reference():

@@ -4,8 +4,11 @@ compress/decode on the CPU, serving a field through
 ``repro_torch.launch.serve`` and training it through
 ``repro_torch.launch.train`` (with NeurLZ-compressed checkpoints), and
 importing the distributed layer (``distributed.sharding``,
-``distributed.elastic``, ``launch.mesh``), loads neither JAX nor any
-module of ``repro``."""
+``distributed.elastic``, ``launch.mesh``), and importing the ported
+examples (``examples/*_torch.py``), ``scripts/paper_quality.py``,
+``scripts/rounding_spread.py`` and ``chip_smoke.py`` with the
+plain-backward variants the quality script builds, loads neither JAX nor
+any module of ``repro``."""
 import os
 import subprocess
 import sys
@@ -13,6 +16,7 @@ import sys
 _SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 _SCRIPT = """
+import os
 import sys
 import numpy as np
 import repro_torch
@@ -45,6 +49,14 @@ import repro_torch.distributed.elastic
 import repro_torch.distributed.sharding
 import repro_torch.launch.mesh
 import repro_torch.optim.grad_compress
+root = sys.argv[1]
+sys.path[:0] = [os.path.join(root, "examples"), os.path.join(root, "scripts"),
+                root]
+import compress_field_torch, quickstart_torch, serve_archive_torch
+import chip_smoke
+import paper_quality
+import rounding_spread
+assert sorted(paper_quality.variant_convs()) == ["kernel", "plain", "plain_f64"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -57,7 +69,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     # files set it): the default, a thread a core, oversubscribes the
     # cores the other workers share and doubles the run even alone.
     env = dict(os.environ, PYTHONPATH=_SRC, OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = subprocess.run([sys.executable, "-c", _SCRIPT, root], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
